@@ -22,7 +22,19 @@ Phases (any failure raises and exits non-zero before the last line):
      candidate bricks, exact; pack-left: random masks and the real
      triangle mask, exact), with CUDA-event times of both;
   5. whole-path parity: the first 8 frames through the kernels and through
-     the plain engine on the card, volumes and meshes compared.
+     the plain engine on the card, volumes and meshes compared;
+  6. the render path on the phase-2 volume: pack_render, then render_view
+     (colored, 640x480) from all 48 orbit poses, with the ray-march launch
+     count zeroed just before and read just after; every depth image held
+     against the noiseless sphere (interior coverage > 0.95, median error
+     below half a cell); the ray-march kernel against its plain version on
+     two poses at full width (found/valid/nvalid equal on all but 0.01 % of
+     rays, t* and normals within 1e-5 where both are valid), with CUDA-event
+     times of both and the bound from the plain march's own count of the
+     work; one render_depth_diff forward and backward at full width through
+     both routes (gradients finite and nonzero, equal within 1e-5 relative,
+     the pose-z derivative of the mean depth of the well-conditioned rays
+     within 25 % of a central difference with the crossing brackets held).
 
 Output: progress on stderr; on stdout a line of kernel records
 {"kernels": [...]}, the nvidia-smi line, and last
@@ -158,6 +170,162 @@ def record(name, source, replaces, launches, err, ms, plain_ms, nbytes, nops):
             "bound_ms": max(bound_bytes, bound_ops),
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
             "library_ms": None}
+
+
+def render_phase(torch, cfg, vol, poses, poses_h, timer):
+    """Phase 6 (see the module docstring); returns the ray-march kernel's
+    record."""
+    import dataclasses
+
+    from cpu_tsdf_tpu_torch import pack_render, render_view
+    from cpu_tsdf_tpu_torch.geometry import rigid_inverse, transform_points
+    from cpu_tsdf_tpu_torch.ops import raycast_kernel as rk
+    from cpu_tsdf_tpu_torch.ops.interpolate import tsdf_value_vol
+    from cpu_tsdf_tpu_torch.ops.raycast import camera_rays
+    from cpu_tsdf_tpu_torch.synthetic import sphere_depth_world
+
+    n_poses = len(poses)
+    n_rays = cfg.image_width * cfg.image_height
+    torch.cuda.synchronize()
+    rk.launches["raycast"] = 0
+    t0 = time.perf_counter()
+    packed = pack_render(vol)
+    views = [render_view(packed, poses[i], colored=True) for i in range(n_poses)]
+    torch.cuda.synchronize()
+    t_render = time.perf_counter() - t0
+    n_launch = rk.launches["raycast"]
+    log(f"render path: {n_poses} colored {cfg.image_width}x{cfg.image_height} views in "
+        f"{t_render:.4f} s (host clock, one pack_render included) = "
+        f"{n_poses / t_render:.2f} renders/s, {n_poses * n_rays / t_render / 1e6:.2f} M rays/s; "
+        f"raycast launches {n_launch}")
+    if n_launch < n_poses:
+        raise AssertionError(f"the ray-march kernel ran {n_launch} times for {n_poses} renders")
+
+    # every view against the noiseless sphere seen from its pose
+    coverage, errs, n_rgb = [], [], 0
+    for i, view in enumerate(views):
+        truth = sphere_depth_world(cfg, poses_h[i], radius=0.5)
+        d = view.depth.cpu().numpy()
+        interior = ~np.isnan(truth) & (truth < np.nanmax(truth) - 0.12)
+        coverage.append((~np.isnan(d) & interior).sum() / max(interior.sum(), 1))
+        both = ~np.isnan(d) & ~np.isnan(truth)
+        errs.append(np.abs(d[both] - truth[both]))
+        rgb = view.rgb.cpu().numpy()
+        ok = ~np.isnan(rgb[..., 0])
+        n_rgb += int(ok.sum())
+        if not (np.all(rgb[ok] >= 0) and np.all(rgb[ok] <= 255) and np.isfinite(d[both]).all()):
+            raise AssertionError(f"view {i}: colors out of range or depth not finite")
+    err = np.concatenate(errs)
+    log(f"render depth vs the noiseless sphere: interior coverage min {min(coverage):.6f} "
+        f"mean {np.mean(coverage):.6f}; error median {np.median(err) * 1e3:.4f} mm, "
+        f"p99 {np.percentile(err, 99) * 1e3:.4f} mm over {err.size} pixels; "
+        f"{n_rgb} colored pixels")
+    if min(coverage) <= 0.95 or np.median(err) >= HALF_CELL_M:
+        raise AssertionError("rendered depth does not match the sphere")
+
+    # the kernel against its plain version at full width
+    max_err = 0.0
+    for i in (0, n_poses // 2):
+        origins, dirs = (t.contiguous() for t in camera_rays(cfg, poses[i]))
+        k = rk.march(packed, origins, dirs)
+        p = rk.march_plain(packed, origins, dirs)
+        diff = {rk.CHANNELS[c]: int((k[c] != p[c]).sum()) for c in (1, 3, 4)}
+        both = (k[3] > 0) & (p[3] > 0)
+        errc = {rk.CHANNELS[c]: float((k[c][both] - p[c][both]).abs().max())
+                for c in (0, 2, 5, 6, 7)}
+        max_err = max(max_err, *(errc[n] for n in ("t_star", "nx", "ny", "nz")))
+        log(f"raycast kernel vs plain, pose {i}: {int(both.sum())} rays valid in both, "
+            f"{int(k[1].sum())} found; rays differing {diff}; max error where both valid "
+            f"{errc}; channels bit-equal: {torch.equal(k, p)}")
+        if max(diff.values()) > 1e-4 * n_rays or max_err > 1e-5:
+            raise AssertionError("ray-march kernel differs from its plain version")
+    t_k = timer.ms(lambda: rk.march(packed, origins, dirs), spin=True)
+    t_p = timer.ms(lambda: rk.march_plain(packed, origins, dirs), reps=5, warmup=1, spin=True)
+    nbytes, nops = rk.march_work(packed, origins, dirs)
+    t_view = timer.ms(lambda: render_view(packed, poses[n_poses // 2], colored=True))
+    log(f"raycast: {n_rays} rays, kernel {t_k:.4f} ms, plain {t_p:.4f} ms; work "
+        f"{nbytes} bytes, {nops} operations; colored render_view of the packed "
+        f"volume {t_view:.4f} ms (CUDA events, launches included)")
+    n_prof = 8
+    t0 = time.perf_counter()
+    for k in range(n_prof):
+        render_view(packed, poses[k], colored=True)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy, top = device_ms(torch, lambda: [render_view(packed, poses[k], colored=True)
+                                          for k in range(n_prof)])
+    log(f"device busy over {n_prof} renders: {busy:.4f} ms of {wall:.4f} ms wall "
+        f"(share {busy / wall:.4f}; torch.profiler kernel time, wall unprofiled); "
+        f"largest: {top}")
+
+    # the differentiable render at full width, both routes. The loss is the
+    # mean depth over the well-conditioned rays: valid, the refined crossing
+    # inside its half-cell bracket, the two trilinear samples at least 0.05
+    # apart. Elsewhere the refinement extrapolates or divides by a near-zero
+    # difference (reference semantics), and its derivative is unbounded.
+    i = n_poses // 2
+    origins, dirs = (t.contiguous() for t in camera_rays(cfg, poses[i]))
+    ch = rk.march(packed, origins, dirs)
+    t_bt, found = ch[0], ch[1] > 0
+    half = cfg.zsize / cfg.zres / 2.0
+
+    def points(t):
+        return [origins[:, k] + t * dirs[:, k] for k in range(3)]
+
+    sep = (tsdf_value_vol(packed, *points(t_bt - half))[0]
+           - tsdf_value_vol(packed, *points(t_bt))[0]).abs()
+    rays = (ch[3] > 0) & (ch[2] >= t_bt - half) & (ch[2] <= t_bt) & (sep > 0.05)
+
+    def loss(d, valid):
+        m = valid & rays.reshape(d.shape)
+        return torch.where(m, d, 0.0).sum() / m.sum()
+
+    grads = []
+    for use_kernel in (True, False):
+        sdf = vol.sdf.clone().requires_grad_(True)
+        pose = poses[i].clone().requires_grad_(True)
+        t0 = time.perf_counter()
+        d, valid, ok = rk.render_depth_diff(dataclasses.replace(vol, sdf=sdf), pose,
+                                            use_kernel=use_kernel)
+        loss(d, valid).backward()
+        torch.cuda.synchronize()
+        grads.append((sdf.grad, pose.grad, time.perf_counter() - t0))
+    (gk_sdf, gk_pose, t_gk), (gp_sdf, gp_pose, t_gp) = grads
+    rel = max(float((a - b).abs().max()) / float(b.abs().max())
+              for a, b in ((gk_sdf, gp_sdf), (gk_pose, gp_pose)))
+
+    # central differences in pose z of the same loss: with the brackets held
+    # at this pose (the function the backward differentiates: the gate) and
+    # free (the render itself: logged, see PERF.md)
+    def mean_depth(tz, frozen):
+        pose = poses[i].clone()
+        pose[2, 3] += tz
+        if not frozen:
+            return float(loss(*rk.render_depth_diff(vol, pose)[:2]))
+        o, r = camera_rays(cfg, pose)
+        t = rk.refine_differentiable(vol, o, r, t_bt, found)
+        t = torch.where(rays, t, 1.0)
+        d = transform_points(rigid_inverse(pose), *(o[:, k] + t * r[:, k] for k in range(3)))[2]
+        return float(loss(d, rays))
+
+    eps = 1e-4
+    fd, fd_free = ((mean_depth(eps, f) - mean_depth(-eps, f)) / (2 * eps) for f in (True, False))
+    g_z = float(gk_pose[2, 3])
+    log(f"render_depth_diff at full width: forward + backward {t_gk * 1e3:.2f} ms (kernel "
+        f"route) / {t_gp * 1e3:.2f} ms (plain route), host clock; loss over "
+        f"{int(rays.sum())} well-conditioned of {int((ch[3] > 0).sum())} valid rays; sdf "
+        f"gradient {int((gk_sdf != 0).sum())} nonzero; routes differ by {rel:.3g} relative; "
+        f"pose z derivative {g_z:.6f}, central difference {fd:.6f} with the brackets "
+        f"held, {fd_free:.6f} free")
+    if not (torch.isfinite(gk_sdf).all() and torch.isfinite(gk_pose).all()
+            and int((gk_sdf != 0).sum()) > 0 and g_z != 0.0):
+        raise AssertionError("render_depth_diff gradients are not finite and nonzero")
+    if rel > 1e-5 or abs(fd - g_z) > 0.25 * max(abs(fd), abs(g_z), 1e-3):
+        raise AssertionError("render_depth_diff gradients disagree")
+
+    return record("raycast", "cpu_tsdf_tpu_torch/csrc/raycast.cu",
+                  "cpu_tsdf_tpu/ops/pallas_raycast.py:367", n_launch, max_err, t_k, t_p,
+                  nbytes, nops)
 
 
 def main() -> int:
@@ -395,6 +563,9 @@ def main() -> int:
         raise AssertionError(f"mesh vertices differ by {verr} (or colors differ)")
     log(f"whole-path parity over {n_par} frames: volumes match (sdf/M err {err}), "
         f"{sk.num_triangles} triangles match (vertex err {verr})")
+    del vk, vp, sk, sp
+
+    kernels.append(render_phase(torch, cfg, vol, poses, poses_h, timer))
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

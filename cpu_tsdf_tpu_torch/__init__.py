@@ -2,11 +2,12 @@
 Hopper cards.
 
 Projective depth fusion into a truncated signed distance field, dense or in
-a brick-sparse volume, and marching-cubes extraction to PLY, in PyTorch,
-with the hot paths in CUDA kernels written for sm_90a (``csrc/``). Entry
-points allocate on the CUDA device unless the caller passes
-``device="cpu"``; functions run on the device of the tensors they get. On
-CPU tensors every kernel wrapper runs its plain PyTorch version instead.
+a brick-sparse volume, raycast rendering (differentiable in depth), field
+queries, and marching-cubes extraction to PLY, in PyTorch, with the hot
+paths in CUDA kernels written for sm_90a (``csrc/``). Entry points allocate
+on the CUDA device unless the caller passes ``device="cpu"``; functions run
+on the device of the tensors they get. On CPU tensors every kernel wrapper
+runs its plain PyTorch version instead.
 
 This package imports neither jax nor cpu_tsdf_tpu.
 """
@@ -14,11 +15,15 @@ This package imports neither jax nor cpu_tsdf_tpu.
 from .config import TSDFConfig, snap_resolution_pow2  # noqa: F401
 from .volume import TSDFVolume, make_volume, reset  # noqa: F401
 from .ops.fusion import integrate  # noqa: F401
+from .ops.raycast import RenderResult, render_view  # noqa: F401
+from .ops import interpolate  # noqa: F401
 from .bricks import (  # noqa: F401
     BrickVolume,
+    PackedRenderVolume,
     from_dense,
     integrate_bricks,
     make_brick_volume,
+    pack_render,
     to_dense,
 )
 

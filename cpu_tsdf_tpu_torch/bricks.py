@@ -98,6 +98,113 @@ def _brick_coords(bids, nb):
 
 
 # ---------------------------------------------------------------------------
+# uniform voxel gather (dense, brick and packed-render volumes)
+# ---------------------------------------------------------------------------
+
+def _brick_lookup(vol, ix, iy, iz):
+    """(slot, row-major flat index) of clipped voxel indices in a brick
+    layout; slot < 0 = unallocated (the flat index then points at row 0)."""
+    B = vol.brick_size
+    nbx, nby, nbz = (vol.config.xres // B, vol.config.yres // B, vol.config.zres // B)
+    blin = ((ix // B) * nby + (iy // B)) * nbz + (iz // B)
+    slot = vol.brick_map.reshape(-1)[blin.long()]
+    inner = ((ix % B) * B + (iy % B)) * B + (iz % B)
+    lin = torch.clamp(slot, 0, vol.capacity - 1).long() * (B ** 3) + inner
+    return slot, lin
+
+
+def _clip_index(cfg: TSDFConfig, ix, iy, iz):
+    return (torch.clamp(ix, 0, cfg.xres - 1), torch.clamp(iy, 0, cfg.yres - 1),
+            torch.clamp(iz, 0, cfg.zres - 1))
+
+
+def _dense_lin(cfg: TSDFConfig, ix, iy, iz):
+    return ((ix.long() * cfg.yres + iy) * cfg.zres + iz)
+
+
+def gather_dw(vol, ix, iy, iz):
+    """(d, w) at clipped integer voxel indices, for any volume
+    representation (dense, brick, or packed-render). An unallocated brick
+    reads as an unobserved voxel (d = -1, w = 0). Differentiable with
+    respect to the volume's sdf."""
+    cfg = vol.config
+    ix, iy, iz = _clip_index(cfg, ix, iy, iz)
+    if isinstance(vol, PackedRenderVolume):
+        return _gather_packed(vol, ix, iy, iz)
+    if isinstance(vol, TSDFVolume):
+        lin = _dense_lin(cfg, ix, iy, iz)
+        return vol.sdf.reshape(-1)[lin], vol.weight.reshape(-1)[lin]
+    slot, lin = _brick_lookup(vol, ix, iy, iz)
+    d = vol.sdf.reshape(-1)[lin]
+    w = vol.weight.reshape(-1)[lin]
+    empty = slot < 0
+    return (torch.where(empty, torch.full_like(d, -1.0), d),
+            torch.where(empty, torch.zeros_like(w), w))
+
+
+def gather_color(vol, ix, iy, iz):
+    """Fused color channels [..., nc] at clipped voxel indices (any volume
+    type); an unallocated brick reads as 0."""
+    cfg = vol.config
+    ix, iy, iz = _clip_index(cfg, ix, iy, iz)
+    nc = vol.color.shape[-1]
+    flat = vol.color.reshape(-1, nc)
+    if getattr(vol, "brick_map", None) is None:
+        return flat[_dense_lin(cfg, ix, iy, iz)]
+    slot, lin = _brick_lookup(vol, ix, iy, iz)
+    c = flat[lin]
+    return torch.where((slot < 0)[..., None], torch.zeros_like(c), c)
+
+
+@dataclasses.dataclass
+class PackedRenderVolume:
+    """Render-only view of a volume with SDF and weight-validity packed into
+    one float32 channel: NaN = unobserved (w == 0), else the SDF value.
+
+    The ray march reads one word per voxel lookup instead of two. Not usable
+    for marching cubes or fusion (the weights are gone): render paths only.
+    ``rd`` is dense [X, Y, Z] (``brick_map`` None) or brick rows [C, B^3]."""
+
+    rd: torch.Tensor
+    brick_map: Optional[torch.Tensor]
+    color: Optional[torch.Tensor]
+    global_transform: torch.Tensor
+    config: TSDFConfig
+    brick_size: int = 0
+    capacity: int = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.rd.device
+
+
+def pack_render(vol) -> PackedRenderVolume:
+    """The packed render view of a dense or brick volume (a new tensor;
+    the volume is not modified)."""
+    rd = torch.where(vol.weight > 0, vol.sdf, torch.full_like(vol.sdf, float("nan")))
+    if isinstance(vol, TSDFVolume):
+        return PackedRenderVolume(rd=rd, brick_map=None, color=vol.color,
+                                  global_transform=vol.global_transform,
+                                  config=vol.config)
+    return PackedRenderVolume(rd=rd, brick_map=vol.brick_map, color=vol.color,
+                              global_transform=vol.global_transform,
+                              config=vol.config, brick_size=vol.brick_size,
+                              capacity=vol.capacity)
+
+
+def _gather_packed(vol: PackedRenderVolume, ix, iy, iz):
+    if vol.brick_map is None:
+        rd = vol.rd.reshape(-1)[_dense_lin(vol.config, ix, iy, iz)]
+    else:
+        slot, lin = _brick_lookup(vol, ix, iy, iz)
+        rd = vol.rd.reshape(-1)[lin]
+        rd = torch.where(slot < 0, torch.full_like(rd, float("nan")), rd)
+    unobserved = torch.isnan(rd)
+    return (torch.where(unobserved, torch.full_like(rd, -1.0), rd),
+            torch.where(unobserved, torch.zeros_like(rd), torch.ones_like(rd)))
+
+
+# ---------------------------------------------------------------------------
 # allocation
 # ---------------------------------------------------------------------------
 

@@ -21,6 +21,14 @@ import torch
 from .config import TSDFConfig
 
 
+def div_const(x, c: float):
+    """x / c with c rounded to x's dtype and a true division on every
+    device (a Python scalar divisor becomes a reciprocal multiply in
+    PyTorch's CUDA kernels, one ulp off the JAX package and the CUDA
+    kernels of this package)."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
 def voxel_center(cfg: TSDFConfig, ix, iy, iz):
     """Center of voxel (ix,iy,iz) in the volume frame (float tensors in)."""
     cx, cy, cz = cfg.cell_size
@@ -31,13 +39,24 @@ def voxel_center(cfg: TSDFConfig, ix, iy, iz):
 
 
 def voxel_index(cfg: TSDFConfig, x, y, z):
-    """floor() voxel index of a point, plus the in-bounds mask."""
-    ix = torch.floor((x + cfg.xsize / 2.0) / cfg.xsize * cfg.xres).to(torch.int32)
-    iy = torch.floor((y + cfg.ysize / 2.0) / cfg.ysize * cfg.yres).to(torch.int32)
-    iz = torch.floor((z + cfg.zsize / 2.0) / cfg.zsize * cfg.zres).to(torch.int32)
+    """floor() voxel index of a point, plus the in-bounds mask.
+    ``floor((x + size/2) / size * res)``, op by op, as the ray-march kernel
+    computes it."""
+    ix = torch.floor(div_const(x + cfg.xsize / 2.0, cfg.xsize) * cfg.xres).to(torch.int32)
+    iy = torch.floor(div_const(y + cfg.ysize / 2.0, cfg.ysize) * cfg.yres).to(torch.int32)
+    iz = torch.floor(div_const(z + cfg.zsize / 2.0, cfg.zsize) * cfg.zres).to(torch.int32)
     valid = ((ix >= 0) & (iy >= 0) & (iz >= 0)
              & (ix < cfg.xres) & (iy < cfg.yres) & (iz < cfg.zres))
     return ix, iy, iz, valid
+
+
+def in_volume(cfg: TSDFConfig, x, y, z):
+    """Bounds test of Octree::getContainingVoxel (octree.cpp:627-643): NaN z
+    is rejected; |coord| > size/2 is outside."""
+    return (~torch.isnan(z)
+            & (torch.abs(x) <= cfg.xsize / 2.0)
+            & (torch.abs(y) <= cfg.ysize / 2.0)
+            & (torch.abs(z) <= cfg.zsize / 2.0))
 
 
 def pixel_index(f, hi: int):
@@ -72,6 +91,15 @@ def transform_points(m, x, y, z):
     nx = m[0, 0] * x + m[0, 1] * y + m[0, 2] * z + m[0, 3]
     ny = m[1, 0] * x + m[1, 1] * y + m[1, 2] * z + m[1, 3]
     nz = m[2, 0] * x + m[2, 1] * y + m[2, 2] * z + m[2, 3]
+    return nx, ny, nz
+
+
+def rotate_vectors(m, x, y, z):
+    """Apply only the rotation part of a 4x4 transform, summed left to
+    right as ``m0*x + m1*y + m2*z``."""
+    nx = m[0, 0] * x + m[0, 1] * y + m[0, 2] * z
+    ny = m[1, 0] * x + m[1, 1] * y + m[1, 2] * z
+    nz = m[2, 0] * x + m[2, 1] * y + m[2, 2] * z
     return nx, ny, nz
 
 

@@ -25,17 +25,10 @@ from typing import Optional
 import torch
 
 from ..config import TSDFConfig
-from ..geometry import frustum_contains, reproject_point, rigid_inverse, transform_points
+from ..geometry import (div_const, frustum_contains, reproject_point, rigid_inverse,
+                        transform_points)
 from ..volume import TSDFVolume, voxel_centers_grid
 from . import color as color_ops
-
-
-def div_const(x, c: float):
-    """x / c with c rounded to x's dtype and a true division on every
-    device (a Python scalar divisor becomes a reciprocal multiply in
-    PyTorch's CUDA kernels, one ulp off the JAX package and the fusion
-    kernel)."""
-    return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
 def coarse_cell_frustum(cfg: TSDFConfig, trans_inv, vx, vy, vz):

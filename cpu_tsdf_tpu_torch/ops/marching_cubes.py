@@ -31,10 +31,9 @@ import numpy as np
 import torch
 
 from ..config import TSDFConfig
-from ..geometry import transform_points, voxel_center
+from ..geometry import div_const, transform_points, voxel_center
 from ..volume import resolve_use_kernel
 from . import color as color_ops
-from .fusion import div_const
 from .mc_tables import CORNER_OFFSETS, EDGE_CORNERS, MAX_TRIS_PER_CUBE, TRI_COUNT, TRI_TABLE
 
 # Default minimum weight to mesh a voxel (marching_cubes_tsdf_octree.h:58).

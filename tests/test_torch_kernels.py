@@ -11,6 +11,8 @@ The CPU parity of the plain versions with the JAX package is in the other
 tests/test_torch_*.py files.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,8 @@ from cpu_tsdf_tpu_torch import bricks as tb
 from cpu_tsdf_tpu_torch.config import TSDFConfig
 from cpu_tsdf_tpu_torch.ops import fusion_kernel as fk
 from cpu_tsdf_tpu_torch.ops import marching_cubes as mc
+from cpu_tsdf_tpu_torch.ops import raycast as rc
+from cpu_tsdf_tpu_torch.ops import raycast_kernel as rk
 from cpu_tsdf_tpu_torch.synthetic import orbit_pose, sphere_depth_world
 
 CFG = TSDFConfig(xres=128, yres=128, zres=128, xsize=1.6, ysize=1.6, zsize=1.6,
@@ -142,3 +146,93 @@ def test_mc_kernels_match_plain(cuda_device):
         assert (sk.colors is None) == (sp.colors is None)
         if sk.colors is not None:
             assert torch.equal(sk.colors, sp.colors)
+
+
+# (config options, brick size: 0 = dense, downsample_by)
+RENDER_CASES = {
+    "trilinear": ({}, 8, 1),
+    "nearest": ({"use_trilinear_interpolation": False}, 8, 1),
+    "asymmetric_truncation": ({"max_dist_pos": 0.08, "max_dist_neg": 0.03}, 8, 1),
+    "downsample_by_2": ({}, 8, 2),
+    "dense": ({}, 0, 1),
+    "brick_4": ({}, 4, 1),
+}
+
+
+def _render_volume(dev, options, brick):
+    cfg = CFG.with_updates(integrate_color=True, color_mode="RGB", **options)
+    vol = tb.make_brick_volume(cfg, 8, 4096, device=dev)
+    for pose, depth, rgb in _frames(cfg):
+        tb.integrate_bricks(vol, depth, pose, rgb, 2048)
+    if brick == 0:
+        return tb.to_dense(vol)
+    return vol if brick == 8 else tb.from_dense(tb.to_dense(vol), brick_size=brick)
+
+
+def assert_channels_match(k, p, what):
+    """found/valid/nvalid equal on all but 0.01 % of rays; t* and the
+    normals within 1e-5 where both are valid."""
+    n = k.shape[1]
+    for c in (1, 3, 4):
+        diff = int((k[c] != p[c]).sum())
+        assert diff <= 1e-4 * n, (what, rk.CHANNELS[c], diff)
+    both = (k[3] > 0) & (p[3] > 0)
+    assert int(both.sum()) > 1000, what
+    for c in (2, 5, 6, 7):
+        err = float((k[c][both] - p[c][both]).abs().max())
+        assert err <= 1e-5, (what, rk.CHANNELS[c], err)
+
+
+@pytest.mark.parametrize("case", list(RENDER_CASES))
+def test_raycast_kernel_matches_plain(cuda_device, case):
+    """The ray-march kernel against march_plain on the same rays (dense and
+    brick layouts, both interpolation modes, asymmetric truncation, a
+    downsampled camera), then render_view's two routes end to end."""
+    options, brick, ds = RENDER_CASES[case]
+    vol = _render_volume(cuda_device, options, brick)
+    packed = tb.pack_render(vol)
+    pose = torch.as_tensor(orbit_pose(0.3), device=cuda_device)
+    origins, dirs = rc.camera_rays(vol.config, pose, ds)
+    origins, dirs = origins.contiguous(), dirs.contiguous()
+    before = rk.launches["raycast"]
+    k = rk.march(packed, origins, dirs)
+    p = rk.march_plain(packed, origins, dirs)
+    torch.cuda.synchronize()
+    assert rk.launches["raycast"] == before + 1
+    assert_channels_match(k, p, case)
+    vk, vp = (rc.render_view(vol, pose, ds, colored=True, use_kernel=u) for u in (True, False))
+    assert rk.launches["raycast"] == before + 2
+    both = ~torch.isnan(vk.depth) & ~torch.isnan(vp.depth)
+    assert float((vk.depth[both] - vp.depth[both]).abs().max()) <= 1e-5
+    cb = ~torch.isnan(vk.rgb[..., 0]) & ~torch.isnan(vp.rgb[..., 0])
+    assert torch.equal(vk.rgb[cb], vp.rgb[cb])
+
+
+def test_raycast_kernel_rejects_bad_input(cuda_device):
+    vol = tb.pack_render(tb.make_brick_volume(CFG, 8, 64, device=cuda_device))
+    rays = torch.zeros((10, 3), device=cuda_device)
+    with pytest.raises(ValueError):
+        rk.march(vol, rays.double(), rays)
+    with pytest.raises(ValueError):
+        rk.march(dataclasses.replace(vol, rd=vol.rd.t()), rays, rays)
+
+
+def test_depth_gradients_kernel_route_match_plain(cuda_device):
+    """render_depth_diff's gradients for the sdf and the pose through the
+    kernel's forward equal those through the plain march's, within 1e-5
+    relative to the largest entry."""
+    vol = _render_volume(cuda_device, {}, 8)
+    grads = []
+    for use_kernel in (True, False):
+        sdf = vol.sdf.clone().requires_grad_(True)
+        pose = torch.as_tensor(orbit_pose(0.3), device=cuda_device).requires_grad_(True)
+        d, valid, ok = rk.render_depth_diff(dataclasses.replace(vol, sdf=sdf), pose,
+                                            use_kernel=use_kernel)
+        assert ok is True and int(valid.sum()) > 1000
+        (torch.where(valid, d, 0.0).sum() / valid.sum()).backward()
+        grads.append((sdf.grad, pose.grad))
+    (gk_sdf, gk_pose), (gp_sdf, gp_pose) = grads
+    assert int((gk_sdf != 0).sum()) > 50 and float(gk_pose[2, 3]) != 0.0
+    for gk, gp in ((gk_sdf, gp_sdf), (gk_pose, gp_pose)):
+        assert torch.isfinite(gk).all()
+        assert float((gk - gp).abs().max()) <= 1e-5 * float(gp.abs().max())

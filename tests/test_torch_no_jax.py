@@ -1,5 +1,7 @@
-"""The port stands alone: it imports neither jax nor the JAX package, and its
-entry points default to the CUDA device with no silent CPU fallback."""
+"""The port stands alone: it imports neither jax nor the JAX package (a
+script fuses, meshes, writes a PLY and renders a view with both blocked),
+and its entry points default to the CUDA device with no silent CPU
+fallback."""
 
 import os
 import subprocess
@@ -36,6 +38,9 @@ v, f, _ = extract_mesh(vol, min_weight=0.5)
 assert len(f) > 50 and not bool(vol.overflowed), len(f)
 save_ply(sys.argv[1], v, f)
 assert load_ply(sys.argv[1])[1].shape == f.shape
+r = T.render_view(vol, orbit_pose(0.4), colored=False)
+n = int((~r.depth.isnan()).sum())
+assert r.depth.shape == (30, 40) and n > 300, n
 assert not any(m == "jax" or m.startswith(("jax.", "jaxlib", "cpu_tsdf_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("NO-JAX OK", len(f))
