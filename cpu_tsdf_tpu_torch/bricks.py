@@ -356,18 +356,14 @@ def fuse_brick_batch(cfg: TSDFConfig, B: int, bx, by, bz, slot_ok, slots,
     """Fuse one frame's update list into the [C, B^3] state rows IN PLACE.
 
     bx/by/bz [K] are brick-grid coords (they fix world positions); rows with
-    slot_ok False write nothing. With use_kernel the per-voxel update goes
-    through the kernel wrapper (csrc/fusion.cu on the card; B must be 8),
-    else through the plain engine; either way the
-    color transform (RGB / RGBNormalized / LAB) then runs as tensor code over
-    the frame's rows, from the observations and effective weights the
-    engine wrote per row."""
-    from .ops import color as color_ops
+    slot_ok False write nothing. With use_kernel the update goes through the
+    kernel wrapper (csrc/fusion.cu on the card; B must be 8), else through
+    the plain engine; either way the engine also updates the color rows
+    (RGB / RGBNormalized / LAB) when color and rgb are given."""
     from .ops.fusion_kernel import fuse_bricks, fuse_bricks_plain
 
     if use_kernel and B != 8:
         raise ValueError("the fusion kernel takes 8^3 bricks only")
-    C = sdf.shape[0]
     color_active = color is not None and rgb is not None
     if color_active:
         # trunc mirrors the reference's uint8 color observations
@@ -375,18 +371,9 @@ def fuse_brick_batch(cfg: TSDFConfig, B: int, bx, by, bz, slot_ok, slots,
                                           device=sdf.device)).contiguous()
     rows = torch.stack([bx, by, bz, torch.where(slot_ok, slots, -1)], 1).to(torch.int32)
     engine = fuse_bricks if use_kernel else fuse_bricks_plain
-    aux = engine(cfg, rows.contiguous(), pose_inv.contiguous(), depth.contiguous(),
-                 sdf, weight, M, nsample, rgb if color_active else None)
-    if not color_active:
-        return
-    # rows without a slot read and rewrite the dump row C-1 unchanged
-    dst = torch.where(slot_ok, slots, C - 1).long()
-    c0 = color[dst]
-    weff = aux[:, 3]
-    cvalid = slot_ok[:, None] & (weff >= 0)
-    cu = color_ops.update_color(cfg.color_mode, c0, aux[:, 4], aux[:, 0],
-                                aux[:, 1], aux[:, 2], torch.clamp(weff, min=0.0))
-    color.index_copy_(0, dst, torch.where(cvalid[..., None], cu, c0))
+    engine(cfg, rows.contiguous(), pose_inv.contiguous(), depth.contiguous(),
+           sdf, weight, M, nsample, color if color_active else None,
+           rgb if color_active else None)
 
 
 # ---------------------------------------------------------------------------

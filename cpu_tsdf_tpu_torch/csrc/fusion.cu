@@ -1,26 +1,35 @@
-// Brick fusion kernel: one depth frame fused into the brick volume, in place.
+// Brick fusion kernel: one depth frame (and its color) fused into the brick
+// volume, in place.
 //
 // Replaces cpu_tsdf_tpu/ops/pallas_fusion.py::_kernel_inplace together with
 // the chunk chain around it (fuse_bricks_inplace, brick_meta,
-// expand_extra_meta). The contract is the plain engine,
-// cpu_tsdf_tpu_torch/ops/fusion_kernel.py::fuse_bricks_plain (the JAX
-// package's xla_update branch, bricks.py:531-559, and ops/fusion.py:91-138).
+// expand_extra_meta) and the XLA color transform after it. The contract is
+// the plain engine, cpu_tsdf_tpu_torch/ops/fusion_kernel.py::
+// fuse_bricks_plain (the JAX package's xla_update branch, bricks.py:531-559,
+// ops/fusion.py:91-138 and ops/color.py::update_color).
 //
 // Launch: one block per row of the frame's update list (band candidates,
-// then carve slots), 512 threads, one per voxel of the 8^3 brick. A row is
-// (bx, by, bz, slot); slot < 0 marks a row without a brick, which returns at
-// once and writes nothing (not even to the dump row C-1). Rows of one frame
-// name distinct slots (band and carve lists are disjoint, the allocator
-// hands out unique rows), so blocks never write the same voxel.
+// then carve slots), kVoxels / kVoxelsPerThread threads; thread t owns
+// voxels t*V .. t*V+V-1 of the 8^3 brick (voxel order (lx*8+ly)*8+lz). A row
+// is (bx, by, bz, slot); slot < 0 marks a row without a brick, which returns
+// at once and writes nothing (not even to the dump row C-1). Rows of one
+// frame name distinct slots (band and carve lists are disjoint, the
+// allocator hands out unique rows), so blocks never write the same voxel.
 //
 // Bound: device memory. Each live row reads and writes its 512 voxels of
-// sdf/weight/M/nsample once (16 KiB), coalesced: thread t owns voxel t of
-// the row. The depth image (and rgb) is read by projection, which is a
-// gather; it is 1.2 MB (3.7 MB) at 640x480 and stays in the 50 MB L2. The
-// TPU kernel's one-hot MXU lookup, its bf16 three-plane split, the row band,
-// the column window and the multipass tiles all existed because a TPU core
-// cannot gather from VMEM; here depth[v][u] is a plain load, so none of them
-// is carried over, and there is no pass budget to overflow.
+// sdf/weight/M/nsample (16 KiB) and of color (nc floats a voxel each way)
+// once; with 4 voxels a thread these are 16-byte loads and stores. The
+// depth image (and rgb) is read by projection, which is a gather; it is
+// 1.2 MB (3.7 MB) at 640x480 and stays in the 50 MB L2. So that a thread
+// waits for memory once rather than three times, the pose is read once per
+// block into shared memory, the state loads are issued before the
+// projection, and the depth and rgb pixels are loaded together. The color
+// update runs here, on the voxels the thread already holds, so nothing per
+// voxel is written for a later pass. The TPU kernel's one-hot MXU lookup,
+// its bf16 three-plane split, the row band, the column window and the
+// multipass tiles all existed because a TPU core cannot gather from VMEM;
+// here depth[v][u] is a plain load, so none of them is carried over, and
+// there is no pass budget to overflow.
 //
 // Rounding: u = trunc(uf) picks a depth pixel, so one ulp in uf can move a
 // voxel onto the neighbouring pixel and change d by the whole depth step
@@ -29,7 +38,11 @@
 // order (transform = m0*x + m1*y + m2*z + m3 left to right, then
 // x*fx/z + cx), and every constant comes in FusionParams as the float32
 // rounding of the Python double the plain engine uses. Pixel indices then
-// match the plain engine bit for bit, and weight and nsample exactly.
+// match the plain engine bit for bit, and weight and nsample exactly. The
+// color transform keeps update_color's order as PyTorch's CUDA kernels
+// evaluate it: tensor divisions are IEEE divisions; a tensor divided by a
+// Python scalar is multiplied by the scalar's float32 reciprocal; ** is
+// powf with the float32 exponent.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -50,10 +63,22 @@ struct FusionParams {
   int n_coarse;
   int width, height;
   int frustum_culling, weight_by_depth, weight_by_variance;
+  int color_mode;                      // kNone, kRGB, kRGBNormalized, kLAB
 };
 
-constexpr int kVoxels = 512;  // 8^3, one thread each
-constexpr int kAux = 5;       // r, g, b, w_eff (-1 = no observation), w0
+constexpr int kVoxels = 512;  // 8^3
+constexpr int kVoxelsPerThread = 4;  // one float4 / int4 of each state field
+constexpr int kThreads = kVoxels / kVoxelsPerThread;
+
+enum ColorMode : int { kNone = 0, kRGB = 1, kRGBNormalized = 2, kLAB = 3 };
+
+template <int CM>
+struct Color {
+  static constexpr int nc = CM == kNone ? 0 : (CM == kRGBNormalized ? 4 : 3);
+};
+
+// A Python float constant as PyTorch hands it to a float32 kernel.
+#define F32(x) ((float)(x))
 
 __device__ __forceinline__ int pixel_index(float f, int n) {
   // Clamp before the conversion: a voxel near the camera plane projects to
@@ -64,37 +89,26 @@ __device__ __forceinline__ int pixel_index(float f, int n) {
   return (int)truncf(f);
 }
 
-__global__ void __launch_bounds__(kVoxels)
-fuse_kernel(FusionParams p, const int4* __restrict__ rows,
-            const float* __restrict__ pose,  // pose_inv rows 0..2, 12 floats
-            const float* __restrict__ depth, const float* __restrict__ rgb,
-            float* __restrict__ sdf, float* __restrict__ weight,
-            float* __restrict__ M, int* __restrict__ nsample,
-            float* __restrict__ aux) {
-  const int4 row = rows[blockIdx.x];
-  if (row.w < 0) return;
-  const int t = threadIdx.x;
-  const size_t at = (size_t)row.w * kVoxels + t;
+// The projection of voxel (gx, gy, gz): its pixel, camera z, and whether
+// the sensor range, the image and the coarse frustum admit it.
+struct Projection {
+  int pix;
+  float vz;
+  bool valid;
+};
 
-  const int gx = row.x * 8 + (t >> 6);
-  const int gy = row.y * 8 + ((t >> 3) & 7);
-  const int gz = row.z * 8 + (t & 7);
+__device__ __forceinline__ Projection project(const FusionParams& p, const float* m,
+                                              int gx, int gy, int gz) {
   const float cx = ((float)gx + 0.5f) * p.cell_x - p.half_x;
   const float cy = ((float)gy + 0.5f) * p.cell_y - p.half_y;
   const float cz = ((float)gz + 0.5f) * p.cell_z - p.half_z;
-
-  float m[12];
-#pragma unroll
-  for (int i = 0; i < 12; ++i) m[i] = pose[i];
   const float vx = m[0] * cx + m[1] * cy + m[2] * cz + m[3];
   const float vy = m[4] * cx + m[5] * cy + m[6] * cz + m[7];
   const float vz = m[8] * cx + m[9] * cy + m[10] * cz + m[11];
-
   const int u = pixel_index(vx * p.fx / vz + p.pcx, p.width);
   const int v = pixel_index(vy * p.fy / vz + p.pcy, p.height);
   bool valid = vz >= p.min_dist && vz <= p.max_dist && vz > 0.0f &&
                u >= 0 && u < p.width && v >= 0 && v < p.height;
-
   if (p.frustum_culling) {
     // the coarse octree cell holding the voxel, tested by its centre
     // against the 1.1x-FOV frustum (tsdf_volume_octree.cpp:619-652)
@@ -107,65 +121,179 @@ fuse_kernel(FusionParams p, const int4* __restrict__ rows,
     valid = valid && fz_ >= p.min_dist && fz_ <= p.max_dist &&
             fabsf(fx_) <= p.tan_h * fz_ && fabsf(fy_) <= p.tan_v * fz_;
   }
+  return {valid ? v * p.width + u : 0, vz, valid};
+}
 
-  float z = 0.0f;
-  if (valid) {
-    z = depth[v * p.width + u];
-    valid = !isnan(z);
+// color_ops.rgb_to_lab's linearize (octree.cpp:436-481).
+__device__ __forceinline__ float linearize(float c) {
+  c = c * (1.0f / F32(255.0));
+  const float lin = c > F32(0.0405) ? powf((c + F32(0.055)) * (1.0f / F32(1.055)), F32(2.4))
+                                    : c * (1.0f / F32(12.92));
+  return lin * F32(100.0);
+}
+
+__device__ __forceinline__ float lab_f(float t) {
+  return t > F32(0.008856) ? powf(fabsf(t), F32(1.0 / 3.0))
+                           : F32(7.787) * t + F32(16.0 / 116.0);
+}
+
+// update_color for one voxel that saw (r, g, b) with effective weight
+// w_new, from pre-update weight w0; wsum = w0 + w_new > 0.
+template <int CM>
+__device__ __forceinline__ void update_color(float* c, float w0, float w_new, float wsum,
+                                             float r, float g, float b) {
+  if constexpr (CM == kRGB) {
+    // uint8 truncation after every update (octree.cpp:333-335)
+    c[0] = truncf((w0 * c[0] + w_new * r) / wsum);
+    c[1] = truncf((w0 * c[1] + w_new * g) / wsum);
+    c[2] = truncf((w0 * c[2] + w_new * b) / wsum);
+  } else if constexpr (CM == kRGBNormalized) {
+    // chromaticity + intensity (octree.cpp:379-393)
+    const float i = sqrtf(r * r + g * g + b * b);
+    const float obs[4] = {r / i, g / i, b / i, i};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) c[k] = (w0 * c[k] + w_new * obs[k]) / wsum;
+  } else if constexpr (CM == kLAB) {
+    // average in CIELAB (octree.cpp:530-543)
+    const float rf = linearize(r), gf = linearize(g), bf = linearize(b);
+    const float X = (rf * F32(0.4124) + gf * F32(0.3576) + bf * F32(0.1805)) * (1.0f / F32(95.047));
+    const float Y = (rf * F32(0.2126) + gf * F32(0.7152) + bf * F32(0.0722)) * (1.0f / F32(100.0));
+    const float Z = (rf * F32(0.0193) + gf * F32(0.1192) + bf * F32(0.9505)) * (1.0f / F32(108.883));
+    const float fx = lab_f(X), fy = lab_f(Y), fz = lab_f(Z);
+    const float obs[3] = {F32(116.0) * fy - F32(16.0), F32(500.0) * (fx - fy),
+                          F32(200.0) * (fy - fz)};
+#pragma unroll
+    for (int k = 0; k < 3; ++k) c[k] = (w0 * c[k] + w_new * obs[k]) / wsum;
   }
-  float d_new = z - vz;
+}
+
+// One voxel's update from its projection and the loaded depth z and
+// (r, g, b); returns whether the voxel was observed (and changed).
+template <int CM>
+__device__ __forceinline__ bool fuse_voxel(const FusionParams& p, const Projection& o,
+                                           float z, float r, float g, float b, float& d,
+                                           float& w, float& Mv, int& n, float* c) {
+  bool valid = o.valid && !isnan(z);  // z is 0 where the projection failed
+  float d_new = z - o.vz;
   valid = valid && d_new >= -p.max_dist_neg;  // no carving behind the band
   d_new = fminf(d_new, p.max_dist_pos) / p.max_dist_neg;
   float w_new = 1.0f;
   if (p.weight_by_depth) w_new = 1.0f - fminf(z / 10.0f, 1.0f);
 
-  const float d0 = sdf[at], w0 = weight[at], M0 = M[at];
-  const int n0 = nsample[at];
+  const float d0 = d, w0 = w, M0 = Mv;
+  const int n0 = n;
   if (p.weight_by_variance && n0 > 5) {
     // the reference's n/(n-1) factor is integer division, i.e. 1
     const float var = M0 / (w0 > 0.0f ? w0 : 1.0f);
     w_new = w_new * expf(-((d_new - d0) * (d_new - d0)) / (2.0f * var));
   }
-
-  if (aux != nullptr) {
-    float* a = aux + (size_t)blockIdx.x * kAux * kVoxels + t;
-    float r = 0.0f, g = 0.0f, b = 0.0f;
-    if (valid) {
-      const float* px = rgb + 3 * (v * p.width + u);
-      r = px[0];
-      g = px[1];
-      b = px[2];
-    }
-    a[0 * kVoxels] = r;
-    a[1 * kVoxels] = g;
-    a[2 * kVoxels] = b;
-    a[3 * kVoxels] = valid ? w_new : -1.0f;
-    a[4 * kVoxels] = w0;
-  }
-  if (!valid) return;
+  if (!valid) return false;
 
   // weighted average, cap AFTER the average (octree.cpp:153-163); wsum == 0
   // keeps the old d
   const float wsum = w0 + w_new;
   const float d_upd = wsum > 0.0f ? (d0 * w0 + d_new * w_new) / wsum : d0;
-  sdf[at] = d_upd;
+  d = d_upd;
   // not fminf: a NaN gate (exp(-0/0) when M0 == 0 and d_new == d0) must
   // stay NaN, as in the plain engine's clamp and the reference
-  weight[at] = wsum > p.max_weight ? p.max_weight : wsum;
-  M[at] = M0 + w_new * (d_new - d_upd) * (d_new - d0);
-  nsample[at] = n0 + 1;
+  w = wsum > p.max_weight ? p.max_weight : wsum;
+  Mv = M0 + w_new * (d_new - d_upd) * (d_new - d0);
+  n = n0 + 1;
+  // a NaN gate leaves the color as it was, as does wsum == 0
+  if (CM != kNone && w_new >= 0.0f && wsum > 0.0f) update_color<CM>(c, w0, w_new, wsum, r, g, b);
+  return true;
 }
 
+template <int CM>
+__global__ void __launch_bounds__(kThreads)
+fuse_kernel(FusionParams p, const int4* __restrict__ rows,
+            const float* __restrict__ pose,  // pose_inv rows 0..2, 12 floats
+            const float* __restrict__ depth, const float* __restrict__ rgb,
+            float* __restrict__ sdf, float* __restrict__ weight,
+            float* __restrict__ M, int* __restrict__ nsample,
+            float* __restrict__ color) {
+  constexpr int V = kVoxelsPerThread;
+  constexpr int NC = Color<CM>::nc;
+  constexpr int NCV = NC > 0 ? NC * V : 1;
+  __shared__ float m[12];
+  const int4 row = rows[blockIdx.x];
+  if (row.w < 0) return;  // the whole block: before the barrier
+  const int t = threadIdx.x;
+  if (t < 12) m[t] = pose[t];
+  const size_t at = (size_t)row.w * kVoxels + t * V;
+
+  // the state first: it does not depend on the projection
+  const float4 d4 = *reinterpret_cast<const float4*>(sdf + at);
+  const float4 w4 = *reinterpret_cast<const float4*>(weight + at);
+  const float4 m4 = *reinterpret_cast<const float4*>(M + at);
+  const int4 n4 = *reinterpret_cast<const int4*>(nsample + at);
+  float d[V] = {d4.x, d4.y, d4.z, d4.w}, w[V] = {w4.x, w4.y, w4.z, w4.w};
+  float Mv[V] = {m4.x, m4.y, m4.z, m4.w}, c[NCV];
+  int n[V] = {n4.x, n4.y, n4.z, n4.w};
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    const float4 c4 = reinterpret_cast<const float4*>(color + at * NC)[k];
+    c[4 * k] = c4.x; c[4 * k + 1] = c4.y; c[4 * k + 2] = c4.z; c[4 * k + 3] = c4.w;
+  }
+  __syncthreads();
+
+  // a thread's voxels share lx and ly, so their x and y terms are computed once
+  const int gx = row.x * 8 + ((t * V) >> 6), gy = row.y * 8 + (((t * V) >> 3) & 7);
+  Projection o[V];
+  float z[V], r[V], g[V], b[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) o[k] = project(p, m, gx, gy, row.z * 8 + ((t * V + k) & 7));
+  // the depth and rgb pixels of all V voxels, loaded together
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    z[k] = o[k].valid ? depth[o[k].pix] : 0.0f;
+    r[k] = g[k] = b[k] = 0.0f;
+    if (NC > 0 && o[k].valid) {
+      const float* px = rgb + 3 * o[k].pix;
+      r[k] = px[0];
+      g[k] = px[1];
+      b[k] = px[2];
+    }
+  }
+  bool any = false;
+#pragma unroll
+  for (int k = 0; k < V; ++k)
+    any |= fuse_voxel<CM>(p, o[k], z[k], r[k], g[k], b[k], d[k], w[k], Mv[k], n[k],
+                          c + (NC > 0 ? k * NC : 0));
+  if (!any) return;
+
+  *reinterpret_cast<float4*>(sdf + at) = make_float4(d[0], d[1], d[2], d[3]);
+  *reinterpret_cast<float4*>(weight + at) = make_float4(w[0], w[1], w[2], w[3]);
+  *reinterpret_cast<float4*>(M + at) = make_float4(Mv[0], Mv[1], Mv[2], Mv[3]);
+  *reinterpret_cast<int4*>(nsample + at) = make_int4(n[0], n[1], n[2], n[3]);
+#pragma unroll
+  for (int k = 0; k < NC; ++k)
+    reinterpret_cast<float4*>(color + at * NC)[k] =
+        make_float4(c[4 * k], c[4 * k + 1], c[4 * k + 2], c[4 * k + 3]);
+}
+
+// color and rgb are null when color_mode is kNone. Every state pointer must
+// be 16-byte aligned (read and written as float4 / int4).
 extern "C" int tsdf_fuse_bricks(const FusionParams* params, const void* rows,
                                 int n_rows, const void* pose, const void* depth,
                                 const void* rgb, void* sdf, void* weight,
-                                void* M, void* nsample, void* aux,
+                                void* M, void* nsample, void* color,
                                 void* stream) {
   if (n_rows > 0) {
-    fuse_kernel<<<n_rows, kVoxels, 0, (cudaStream_t)stream>>>(
-        *params, (const int4*)rows, (const float*)pose, (const float*)depth,
-        (const float*)rgb, (float*)sdf, (float*)weight, (float*)M,
-        (int*)nsample, (float*)aux);
+    const FusionParams& p = *params;
+    cudaStream_t s = (cudaStream_t)stream;
+#define TSDF_FUSE(CM)                                                              \
+  fuse_kernel<CM><<<n_rows, kThreads, 0, s>>>(                                     \
+      p, (const int4*)rows, (const float*)pose, (const float*)depth,               \
+      (const float*)rgb, (float*)sdf, (float*)weight, (float*)M, (int*)nsample,    \
+      (float*)color)
+    switch (p.color_mode) {
+      case kRGB: TSDF_FUSE(kRGB); break;
+      case kRGBNormalized: TSDF_FUSE(kRGBNormalized); break;
+      case kLAB: TSDF_FUSE(kLAB); break;
+      default: TSDF_FUSE(kNone); break;
+    }
+#undef TSDF_FUSE
   }
   return (int)cudaGetLastError();
 }

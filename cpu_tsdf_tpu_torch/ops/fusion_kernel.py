@@ -1,34 +1,36 @@
 """Brick fusion: the CUDA kernel (``csrc/fusion.cu``) and its plain version.
 
-:func:`fuse_bricks` fuses one depth frame into the rows of a brick volume
-named by an update list, IN PLACE (the JAX package donated the volume's
-buffers; here the tensors themselves are updated). It replaces the TPU
-kernel ``cpu_tsdf_tpu/ops/pallas_fusion.py::_kernel_inplace``. On a CPU
-tensor it runs :func:`fuse_bricks_plain`, the plain engine that is the
-contract of the kernel (the JAX package's ``xla_update`` branch of
-``bricks.fuse_brick_batch``); on a CUDA tensor it launches the kernel.
+:func:`fuse_bricks` fuses one depth frame, and with color its rgb image,
+into the rows of a brick volume named by an update list, IN PLACE (the JAX
+package donated the volume's buffers; here the tensors themselves are
+updated). It replaces the TPU kernel
+``cpu_tsdf_tpu/ops/pallas_fusion.py::_kernel_inplace`` and the XLA color
+transform after it. On a CPU tensor it runs :func:`fuse_bricks_plain`, the
+plain engine that is the contract of the kernel (the JAX package's
+``xla_update`` branch of ``bricks.fuse_brick_batch``); on a CUDA tensor it
+launches the kernel.
 
 The update list ``rows`` is int32 [K, 4]: the brick coordinates (bx, by,
 bz) and the slot of each row, with slot -1 for a row that names no brick.
-State rows are [C, 512] (8^3 bricks, the voxel order (lx*8+ly)*8+lz).
+State rows are [C, 512] (8^3 bricks, the voxel order (lx*8+ly)*8+lz), color
+rows [C, 512, nc].
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
 
 import torch
 
-from ..config import TSDFConfig
+from ..config import COLOR_MODE_LAB, COLOR_MODE_RGB, COLOR_MODE_RGB_NORMALIZED, TSDFConfig
 from ..geometry import frustum_tans
+from ..volume import color_channels
+from . import color as color_ops
 from .fusion import (coarse_cell_frustum, compute_observation, fuse_observation,
                      gather_image, variance_weight)
 
-# Aux channels written per row and voxel when color is fused:
-# observed r, g, b; the effective weight (-1 = no observation); the
-# pre-update weight, which the color transform averages against.
-AUX_CHANNELS = 5
+# The kernel's color_mode codes (csrc/fusion.cu, enum ColorMode); 0 = none.
+COLOR_CODES = {COLOR_MODE_RGB: 1, COLOR_MODE_RGB_NORMALIZED: 2, COLOR_MODE_LAB: 3}
 
 # Kernel launches since the last reset (plain runs not counted).
 launches = {"fusion": 0}
@@ -44,12 +46,14 @@ class FusionParams(ctypes.Structure):
         "tan_h", "tan_v")]
         + [(n, ctypes.c_int) for n in (
             "xres", "yres", "zres", "n_coarse", "width", "height",
-            "frustum_culling", "weight_by_depth", "weight_by_variance")])
+            "frustum_culling", "weight_by_depth", "weight_by_variance",
+            "color_mode")])
 
 
-def fusion_params(cfg: TSDFConfig) -> FusionParams:
+def fusion_params(cfg: TSDFConfig, color: bool) -> FusionParams:
     """The kernel's constants, each the float32 rounding (done by ctypes) of
-    the Python double the plain engine computes."""
+    the Python double the plain engine computes; with color, the config's
+    color mode."""
     n = 1 << cfg.num_coarse_levels
     tan_h, tan_v = frustum_tans(cfg)
     return FusionParams(
@@ -62,7 +66,7 @@ def fusion_params(cfg: TSDFConfig) -> FusionParams:
         cfg.max_dist_pos, cfg.max_dist_neg, cfg.max_weight, tan_h, tan_v,
         cfg.xres, cfg.yres, cfg.zres, n, cfg.image_width, cfg.image_height,
         int(cfg.frustum_culling), int(cfg.weight_by_depth),
-        int(cfg.weight_by_variance))
+        int(cfg.weight_by_variance), COLOR_CODES[cfg.color_mode] if color else 0)
 
 
 def _voxel_centers(cfg: TSDFConfig, rows, B: int):
@@ -78,9 +82,9 @@ def _voxel_centers(cfg: TSDFConfig, rows, B: int):
 
 
 def fuse_bricks_plain(cfg: TSDFConfig, rows, pose_inv, depth, sdf, weight, M,
-                      nsample, rgb=None) -> Optional[torch.Tensor]:
+                      nsample, color=None, rgb=None) -> None:
     """Plain PyTorch version of the fusion kernel; same arguments, same
-    in-place effect, same aux output ([K, 5, V] with color, else None).
+    in-place effect (on the color rows too, when color and rgb are given).
 
     Rows without a slot read and rewrite the dump row C-1 unchanged (their
     voxels are all invalid), which keeps the scatter free of a host sync."""
@@ -100,86 +104,94 @@ def fuse_bricks_plain(cfg: TSDFConfig, rows, pose_inv, depth, sdf, weight, M,
     weight.index_copy_(0, dst, torch.where(valid, wu, w0))
     M.index_copy_(0, dst, torch.where(valid, Mu, M0))
     nsample.index_copy_(0, dst, torch.where(valid, nu, n0))
-    if rgb is None:
-        return None
-    zero = torch.zeros_like(w_eff)
-    obs = [torch.where(valid, gather_image(rgb[..., c], v, u), zero) for c in range(3)]
-    return torch.stack(obs + [torch.where(valid, w_eff, zero - 1.0), w0], 1)
+    if color is None or rgb is None:
+        return
+    # the pre-update weight w0; a NaN gate (w_eff NaN) keeps the old color
+    c0 = color[dst]
+    r, g, b = (gather_image(rgb[..., c], v, u) for c in range(3))
+    cu = color_ops.update_color(cfg.color_mode, c0, w0, r, g, b, w_eff)
+    seen = (valid & (w_eff >= 0))[..., None]
+    color.index_copy_(0, dst, torch.where(seen, cu, c0))
 
 
 def fuse_bricks(cfg: TSDFConfig, rows, pose_inv, depth, sdf, weight, M, nsample,
-                rgb=None) -> Optional[torch.Tensor]:
+                color=None, rgb=None) -> None:
     """Fuse one frame into the rows of the update list, in place.
 
     rows int32 [K, 4] (bx, by, bz, slot or -1); pose_inv float32 [4, 4]
-    (volume -> camera); depth float32 [H, W] (NaN = missing); rgb float32
-    [H, W, 3], already truncated, or None; sdf/weight/M float32 and nsample
-    int32, all [C, 512]. Returns the aux tensor [K, 5, 512] when rgb is
-    given (rows without a slot leave theirs unwritten), else None.
+    (volume -> camera); depth float32 [H, W] (NaN = missing); sdf/weight/M
+    float32 and nsample int32, all [C, 512]; color float32 [C, 512, nc] and
+    rgb float32 [H, W, 3], already truncated, both or neither. With both,
+    the color rows are updated too (cfg.color_mode).
 
     On CPU tensors this is :func:`fuse_bricks_plain`; on CUDA tensors it
     launches csrc/fusion.cu and raises on anything the kernel does not
     take."""
     if sdf.device.type == "cpu":
-        return fuse_bricks_plain(cfg, rows, pose_inv, depth, sdf, weight, M,
-                                 nsample, rgb)
+        fuse_bricks_plain(cfg, rows, pose_inv, depth, sdf, weight, M, nsample, color, rgb)
+        return
     from .._build import check, check_tensor, function, stream_ptr
 
     dev = sdf.device
     C = sdf.shape[0]
     H, W = cfg.image_height, cfg.image_width
-    for what, t, dt, shape in (
-            ("rows", rows, torch.int32, (rows.shape[0], 4)),
-            ("pose_inv", pose_inv, torch.float32, (4, 4)),
-            ("depth", depth, torch.float32, (H, W)),
-            ("sdf", sdf, torch.float32, (C, 512)),
-            ("weight", weight, torch.float32, (C, 512)),
-            ("M", M, torch.float32, (C, 512)),
-            ("nsample", nsample, torch.int32, (C, 512)),
-            ("rgb", rgb, torch.float32, (H, W, 3))):
-        if t is not None:
-            check_tensor(f"fuse_bricks: {what}", t, dt, shape, dev)
-    if rows.data_ptr() % 16:
-        raise ValueError("fuse_bricks: rows must be 16-byte aligned (read as int4)")
+    with_color = color is not None and rgb is not None
+    if with_color and cfg.color_mode not in COLOR_CODES:
+        raise ValueError(f"fuse_bricks: color mode {cfg.color_mode!r} has no color rows")
+    nc = color_channels(cfg)
+    checks = [("rows", rows, torch.int32, (rows.shape[0], 4)),
+              ("pose_inv", pose_inv, torch.float32, (4, 4)),
+              ("depth", depth, torch.float32, (H, W)),
+              ("sdf", sdf, torch.float32, (C, 512)),
+              ("weight", weight, torch.float32, (C, 512)),
+              ("M", M, torch.float32, (C, 512)),
+              ("nsample", nsample, torch.int32, (C, 512))]
+    if with_color:
+        checks += [("color", color, torch.float32, (C, 512, nc)),
+                   ("rgb", rgb, torch.float32, (H, W, 3))]
+    for what, t, dt, shape in checks:
+        check_tensor(f"fuse_bricks: {what}", t, dt, shape, dev)
+    for what, t in (("rows", rows), ("sdf", sdf), ("weight", weight), ("M", M),
+                    ("nsample", nsample), ("color", color if with_color else None)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"fuse_bricks: {what} must be 16-byte aligned "
+                             "(read as int4 / float4)")
     K = rows.shape[0]
     pose12 = pose_inv[:3].contiguous()
-    aux = (torch.empty((K, AUX_CHANNELS, 512), dtype=torch.float32, device=dev)
-           if rgb is not None else None)
     fn = function("fusion", "tsdf_fuse_bricks",
                   [ctypes.POINTER(FusionParams), ctypes.c_void_p, ctypes.c_int]
                   + [ctypes.c_void_p] * 9)
-    params = fusion_params(cfg)
+    params = fusion_params(cfg, with_color)
     err = fn(ctypes.byref(params), rows.data_ptr(), K, pose12.data_ptr(),
-             depth.data_ptr(), None if rgb is None else rgb.data_ptr(),
+             depth.data_ptr(), rgb.data_ptr() if with_color else None,
              sdf.data_ptr(), weight.data_ptr(), M.data_ptr(), nsample.data_ptr(),
-             None if aux is None else aux.data_ptr(), stream_ptr(dev))
+             color.data_ptr() if with_color else None, stream_ptr(dev))
     check(err, "fuse_bricks")
     launches["fusion"] += 1
-    return aux
 
 
-# Aux words per voxel that the color update needs at the least: the
-# observation packed into one word and the effective weight, as the TPU
-# kernel wrote them (its pre-update weights came from the old buffer). This
-# kernel writes AUX_CHANNELS words instead.
-LEAST_AUX_WORDS = 2
-
-
-def bytes_moved(n_live_rows: int, H: int, W: int, color: bool,
-                aux_words: int = LEAST_AUX_WORDS) -> int:
+def bytes_moved(n_live_rows: int, H: int, W: int, nc: int) -> int:
     """Device-memory traffic of one fuse_bricks call: each live row's 4
     state fields read and written once (16 KiB), the depth image read once,
-    and with color the rgb image read once and `aux_words` words written per
-    voxel of each live row. The default counts the least the color update
-    needs; aux_words=0 is the state-and-images count alone, AUX_CHANNELS
-    what this kernel writes."""
-    b = n_live_rows * 512 * 4 * 4 * 2 + H * W * 4
-    if color:
-        b += H * W * 3 * 4 + n_live_rows * 512 * aux_words * 4
+    and with nc > 0 color channels each live row's color read and written
+    once and the rgb image read once."""
+    return voxel_bytes(n_live_rows * 512, H, W, nc)
+
+
+def voxel_bytes(n_voxels: int, H: int, W: int, nc: int) -> int:
+    """The traffic of :func:`bytes_moved` for n_voxels voxels' state and
+    color. Given the count of voxels the frame observes (whether a voxel is
+    observed depends only on its projection and the depth image), this is
+    the least any fusion of the frame must move."""
+    b = n_voxels * 4 * 4 * 2 + H * W * 4
+    if nc:
+        b += n_voxels * nc * 4 * 2 + H * W * 3 * 4
     return b
 
 
-# Float32 operations per voxel of a live row (projection, frustum test,
-# observation, weighted average, Welford update), counted from the kernel.
+# Float32 operations per voxel of a live row, counted from the kernel:
+# projection, frustum test, observation, weighted average, Welford update;
+# then the color update of each mode.
 OPS_PER_VOXEL = 60
-
+COLOR_OPS_PER_VOXEL = {COLOR_MODE_RGB: 15, COLOR_MODE_RGB_NORMALIZED: 25,
+                       COLOR_MODE_LAB: 72}

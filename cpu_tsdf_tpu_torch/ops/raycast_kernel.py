@@ -59,7 +59,8 @@ class RaycastParams(ctypes.Structure):
         "half_cell")]
         + [(n, ctypes.c_int) for n in (
             "xres", "yres", "zres", "brick", "nbx", "nby", "nbz", "capacity",
-            "max_steps", "bt_max", "trilinear")])
+            "max_steps", "bt_max", "trilinear", "brick_shift", "brick_mask",
+            "tile_width")])
 
 
 def _constants(cfg: TSDFConfig):
@@ -79,7 +80,23 @@ def bt_steps(cfg: TSDFConfig) -> int:
     return int(max(cfg.max_dist_pos, cfg.max_dist_neg) / _constants(cfg)["half_cell"]) + 4
 
 
-def raycast_params(vol: PackedRenderVolume, max_steps: int) -> RaycastParams:
+def tile_width(cfg: TSDFConfig, n_rays: int) -> int:
+    """The row length under which the kernel gives each warp an 8x4 pixel
+    tile: that of the camera image (or of a downsampled one) when n_rays
+    rays fill it and its rows are a multiple of 32 long and come in groups
+    of 4; else 0, one row of 32 rays a warp. Any such length only permutes
+    which thread marches which ray, so the result does not depend on it."""
+    W, H = cfg.image_width, cfg.image_height
+    for ds in range(1, min(W, H) + 1):
+        w, h = W // ds, H // ds
+        if w * h == n_rays:
+            return w if w % 32 == 0 and h % 4 == 0 else 0
+    return 0
+
+
+def raycast_params(vol: PackedRenderVolume, max_steps: int,
+                   tile: int = 0) -> RaycastParams:
+    """The kernel's parameters; tile: see :func:`tile_width`."""
     cfg = vol.config
     k = _constants(cfg)
     csx, csy, csz = cfg.cell_size
@@ -91,7 +108,8 @@ def raycast_params(vol: PackedRenderVolume, max_steps: int) -> RaycastParams:
         cfg.min_sensor_dist, cfg.max_sensor_dist, k["min_step"],
         k["min_adaptive_step"], cfg.max_dist_neg, k["half_cell"],
         cfg.xres, cfg.yres, cfg.zres, B, *nb, vol.capacity, max_steps,
-        bt_steps(cfg), int(cfg.use_trilinear_interpolation))
+        bt_steps(cfg), int(cfg.use_trilinear_interpolation),
+        B.bit_length() - 1 if B and B & (B - 1) == 0 else -1, B - 1, tile)
 
 
 def _sign_change(d, last_d):
@@ -314,7 +332,7 @@ def march(vol: PackedRenderVolume, origins, dirs, max_steps: int = 512):
     fn = function("raycast", "tsdf_raycast",
                   [ctypes.POINTER(RaycastParams)] + [ctypes.c_void_p] * 4
                   + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-    params = raycast_params(vol, max_steps)
+    params = raycast_params(vol, max_steps, tile_width(vol.config, N))
     err = fn(ctypes.byref(params), vol.rd.data_ptr(),
              None if vol.brick_map is None else vol.brick_map.data_ptr(),
              origins.data_ptr(), dirs.data_ptr(), N, out.data_ptr(), stream_ptr(dev))

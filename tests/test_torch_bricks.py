@@ -18,6 +18,10 @@ from cpu_tsdf_tpu_torch import bricks as tb
 from cpu_tsdf_tpu_torch.config import TSDFConfig
 from cpu_tsdf_tpu_torch.convert import (brick_volume_from_arrays,
                                         brick_volume_to_arrays)
+from cpu_tsdf_tpu_torch.geometry import rigid_inverse
+from cpu_tsdf_tpu_torch.ops import color as color_ops
+from cpu_tsdf_tpu_torch.ops import fusion as tf
+from cpu_tsdf_tpu_torch.ops import fusion_kernel as fk
 
 from test_fusion import tilted_pose
 
@@ -112,6 +116,63 @@ def test_fusion_options_match_jax(small_cfg, options):
     assert not (knife & ~((j["nsample"] > 6) & (j["M"] == 0) & (j["sdf"] == 1))).any()
     for k in ("sdf", "weight"):
         np.testing.assert_allclose(a[k][~knife], j[k][~knife], atol=1e-3, err_msg=k)
+
+
+def _fuse_then_color(cfg, rows, pose_inv, depth, state, color, rgb):
+    """The color update as two steps, as it ran before it moved into the
+    fusion engine: the engine fuses the state and gives its per-row
+    observations (r, g, b, effective weight or -1, pre-update weight); the
+    color transform then runs over those rows."""
+    C = state[0].shape[0]
+    slot_ok = rows[:, 3] >= 0
+    dst = torch.where(slot_ok, rows[:, 3], C - 1).long()
+    (vx, vy, vz), (cx, cy, cz) = fk._voxel_centers(cfg, rows, 8)
+    d0, w0, M0, n0 = (t[dst] for t in state)
+    d_obs, w_obs, valid, _, u, v = tf.compute_observation(cfg, depth, pose_inv, cx, cy, cz)
+    if cfg.frustum_culling:
+        valid = valid & tf.coarse_cell_frustum(cfg, pose_inv, vx, vy, vz)
+    valid = valid & slot_ok[:, None]
+    w_eff = tf.variance_weight(cfg, w_obs, d_obs, d0, w0, M0, n0)
+    fk.fuse_bricks_plain(cfg, rows, pose_inv, depth, *state)
+    zero = torch.zeros_like(w_eff)
+    obs = [torch.where(valid, tf.gather_image(rgb[..., c], v, u), zero) for c in range(3)]
+    weff = torch.where(valid, w_eff, zero - 1.0)
+    c0 = color[dst]
+    cvalid = slot_ok[:, None] & (weff >= 0)
+    cu = color_ops.update_color(cfg.color_mode, c0, w0, *obs, torch.clamp(weff, min=0.0))
+    color.index_copy_(0, dst, torch.where(cvalid[..., None], cu, c0))
+
+
+@pytest.mark.parametrize("mode", ["RGB", "RGBNormalized", "LAB"])
+def test_color_fused_in_engine(small_cfg, mode):
+    """fuse_bricks_plain updates the color rows in place, equal bit for bit
+    to the former two steps (the engine's observations, then update_color
+    over the frame's rows); integrate_bricks through it still matches the
+    JAX package's colored brick fusion."""
+    jcfg, cfg, depth, rgb = _scene(small_cfg, mode)
+    jv = jb.make_brick_volume(jcfg, 8, 2048)
+    tv = tb.make_brick_volume(cfg, 8, 2048, device="cpu")
+    for p in POSES[:2]:
+        p = p.astype(np.float32)
+        jv = jb.integrate_bricks(jv, jnp.asarray(depth), jnp.asarray(p), jnp.asarray(rgb), 1024)
+        tb.integrate_bricks(tv, depth, p, rgb, 1024)
+    assert_volumes_match(tv, jv, mode)
+
+    depth_t = torch.as_tensor(depth)
+    pose_inv = rigid_inverse(torch.as_tensor(POSES[2], dtype=torch.float32))
+    bx, by, bz, ok, slots, _ = tb.frame_update_list(tv, depth_t, pose_inv, 1024)
+    rows = torch.stack([bx, by, bz, torch.where(ok, slots, -1)], 1).to(torch.int32)
+    rgb_t = torch.trunc(torch.as_tensor(rgb))
+    fields = (tv.sdf, tv.weight, tv.M, tv.nsample, tv.color)
+    one = [t.clone() for t in fields]
+    two = [t.clone() for t in fields]
+    fk.fuse_bricks_plain(cfg, rows, pose_inv, depth_t, *one, rgb_t)
+    _fuse_then_color(cfg, rows, pose_inv, depth_t, two[:4], two[4], rgb_t)
+    assert int(ok.sum()) > 50
+    assert not torch.equal(one[4], tv.color)  # the frame changed colors
+    for name, a, b in zip(("sdf", "weight", "M", "nsample", "color"), one, two):
+        assert torch.equal(a.isnan(), b.isnan()), name
+        assert torch.equal(a.nan_to_num(), b.nan_to_num()), name
 
 
 def test_one_frame_matches_jax_pallas_interpret(small_cfg):
