@@ -22,8 +22,13 @@ Phases (any failure raises and exits non-zero before the last line):
      color, weight, nsample and RGB color exact, sdf and M within 1e-5,
      and the bound of the voxels the frame observes beside the bound of
      every voxel of its live rows; corner halo: the volume's
-     candidate bricks, exact; pack-left: random masks and the real
-     triangle mask, exact), with CUDA-event times of both;
+     candidate bricks, count, cube table, triangle counts and the corner
+     rows below each count exact, its bound beside the former dense
+     stack's; emission: the real cube list with the identity and a moved
+     global transform, triangles and cube references exact, vertices
+     within 1e-6 with the differing rows logged), with CUDA-event times of
+     both; the extraction's breakdown (candidates, corner halo, scan +
+     sync + emission + colors, copy to host) comes before it;
   5. whole-path parity: the first 8 frames through the kernels and through
      the plain engine on the card, volumes and meshes compared;
   6. the render path on the phase-2 volume: pack_render, then render_view
@@ -172,6 +177,74 @@ def record(name, source, replaces, launches, err, ms, plain_ms, nbytes, nops):
             "bound_ms": max(bound_bytes, bound_ops),
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
             "library_ms": None}
+
+
+def mc_phase(torch, mc, vol, main_launches, timer):
+    """Phase 4's MC part (see the module docstring); returns the records of
+    the corner-halo and emission kernels."""
+    import dataclasses
+
+    cfg = vol.config
+    cand = mc._candidate_slots(vol, 0.5)
+    K = int(cand.shape[0])
+    count, cube, corners, ntri = mc.corner_halo(vol, cand, 0.5)
+    pcount, pcube, pcorners, pntri = mc._corner_halo_plain(vol, cand, 0.5)
+    live = torch.arange(512, device=cand.device)[None] < count[:, None]
+    n_cubes = int(count.sum())
+    same = (torch.equal(count, pcount) and torch.equal(cube, pcube) and torch.equal(ntri, pntri)
+            and torch.equal(corners[live], pcorners[live]))
+    err = max(float((a - b).abs().max()) for a, b in (
+        (count, pcount), (cube, pcube), (ntri, pntri), (corners[live], pcorners[live])))
+    if not same:
+        raise AssertionError(f"corner-halo kernel differs from its plain version ({err})")
+    t_k = timer.ms(lambda: mc.corner_halo(vol, cand, 0.5), spin=True)
+    t_p = timer.ms(lambda: mc._corner_halo_plain(vol, cand, 0.5), spin=True)
+    halo = record("mc_corner_halo", "cpu_tsdf_tpu_torch/csrc/mc_corner_halo.cu",
+                  "cpu_tsdf_tpu/ops/marching_cubes.py:695", main_launches["corner_halo"], err,
+                  t_k, t_p, mc.bytes_moved_corner_halo(K, n_cubes), K * 512 * 64)
+    # the former dense contract (every voxel's stack, ok and loc) as a yardstick
+    halo["bound_dense_ms"] = mc.bytes_moved_dense_stack(K) / HBM_BYTES_PER_S * 1e3
+    log(f"corner halo: {K} candidate bricks, {n_cubes} crossing cubes "
+        f"({n_cubes / (K * 512):.4f} of their cubes), {int(ntri.sum())} triangles, "
+        f"{int((count == 0).sum())} bricks without one; kernel {t_k:.4f} ms, plain "
+        f"{t_p:.4f} ms; bound {halo['bound_ms']:.5f} ms "
+        f"({mc.bytes_moved_corner_halo(K, n_cubes)} bytes), dense-stack bound "
+        f"{halo['bound_dense_ms']:.5f} ms; exact")
+
+    # the emission on the real cube list, with the volume's identity transform
+    # and with a rotation and translation
+    ends = torch.cumsum(ntri, 0, dtype=torch.int32)
+    n_tri = int(ends[-1])
+    off = ends - ntri
+    a = 0.7
+    moved = torch.tensor([[np.cos(a), 0.0, np.sin(a), 0.31], [0.0, 1.0, 0.0, -0.17],
+                          [-np.sin(a), 0.0, np.cos(a), 1.23], [0.0, 0.0, 0.0, 1.0]],
+                         dtype=torch.float32, device=cand.device)
+    err = 0.0
+    for what, v in (("identity", vol), ("rotated", dataclasses.replace(vol, global_transform=moved))):
+        vk, tk = mc.emit_triangles(v, cand, count, cube, corners, off, n_tri)
+        vp, tp = mc._emit_plain(v, cand, count, cube, corners)
+        if vk.shape != vp.shape or not torch.equal(tk, tp):
+            raise AssertionError(f"emission kernel ({what}): triangles or cube references "
+                                 f"differ ({tuple(vk.shape)} vs {tuple(vp.shape)})")
+        verr = float((vk - vp).abs().max())
+        err = max(err, verr)
+        log(f"emission kernel vs plain ({what} transform): {n_tri} triangles, cube "
+            f"references equal; vertices torch.equal {torch.equal(vk, vp)}, "
+            f"{int((vk != vp).any(-1).any(-1).sum())} triangles differ, max err {verr}")
+        if verr > 1e-6:
+            raise AssertionError(f"emission kernel vertices differ by {verr}")
+    t_k = timer.ms(lambda: mc.emit_triangles(vol, cand, count, cube, corners, off, n_tri),
+                   spin=True)
+    t_p = timer.ms(lambda: mc._emit_plain(vol, cand, count, cube, corners), spin=True)
+    # operations: per triangle 3 vertices of 17 (interpolation) + 18
+    # (transform); per cube 8 scalings and 9 for its centre
+    emit = record("mc_emit", "cpu_tsdf_tpu_torch/csrc/mc_emit.cu",
+                  "cpu_tsdf_tpu/ops/marching_cubes.py:631", main_launches["emit"], err, t_k, t_p,
+                  mc.bytes_moved_emit(K, n_cubes, n_tri), n_tri * 105 + n_cubes * 17)
+    log(f"emission: {n_tri} triangles, kernel {t_k:.4f} ms, plain {t_p:.4f} ms; bound "
+        f"{emit['bound_ms']:.5f} ms ({mc.bytes_moved_emit(K, n_cubes, n_tri)} bytes)")
+    return [halo, emit]
 
 
 def render_phase(torch, cfg, vol, poses, poses_h, timer):
@@ -366,7 +439,7 @@ def main() -> int:
     vol = T.make_brick_volume(cfg, 8, capacity, device=dev)
     torch.cuda.synchronize()
     fk.launches["fusion"] = 0
-    mc.launches.update(corner_halo=0, pack_left=0)
+    mc.launches.update(corner_halo=0, emit=0)
     t0 = time.perf_counter()
     for i in range(n_poses):
         T.integrate_bricks(vol, depths[i], poses[i], rgb, budget)
@@ -467,14 +540,16 @@ def main() -> int:
     # extraction steps on the main volume (each a median of synchronized runs)
     t_cand = timer.ms(lambda: mc._candidate_slots(vol, 0.5))
     cand = mc._candidate_slots(vol, 0.5)
-    t_halo = timer.ms(lambda: mc._compact_from_loc(*mc.corner_halo(vol, cand, 0.5)[1:]))
+    t_halo = timer.ms(lambda: mc.corner_halo(vol, cand, 0.5))
     t_soup = timer.ms(lambda: mc.extract_soup_bricks(vol, 0.5, True))
     soup = mc.extract_soup_bricks(vol, 0.5, True)
     t_host = timer.ms(soup.to_numpy)
-    log(f"extraction breakdown: brick stats + candidates {t_cand:.4f} ms; corner halo + "
-        f"cube compaction {t_halo:.4f} ms; case table + pack-left + emission + colors "
-        f"{t_soup - t_cand - t_halo:.4f} ms; copy to host {t_host:.4f} ms "
-        f"(3 host syncs: candidate list, cube count, triangle count)")
+    n_cubes = int(mc.corner_halo(vol, cand, 0.5)[0].sum())
+    log(f"extraction breakdown: brick stats + candidates {t_cand:.4f} ms; corner halo "
+        f"{t_halo:.4f} ms; scan + sync + emission + colors {t_soup - t_cand - t_halo:.4f} ms; "
+        f"copy to host {t_host:.4f} ms ({int(cand.shape[0])} candidate bricks, {n_cubes} "
+        f"crossing cubes, {soup.num_triangles} triangles; 2 host syncs: candidate list, "
+        f"triangle total)")
 
     # ---- phase 4: each kernel against its plain version -------------------
     kernels = []
@@ -512,47 +587,7 @@ def main() -> int:
         f"observed ({n_obs / (n_ok * 512):.4f}): bound of those "
         f"{kernels[-1]['bound_observed_ms']:.5f} ms ({obs_bytes} bytes)")
 
-    cand = mc._candidate_slots(vol, 0.5)
-    dk, okk, lk = mc.corner_halo(vol, cand, 0.5)
-    dp, okp = mc._corner_stacks(vol, cand, 0.5)
-    lp = mc._pack_left_plain(okp)
-    err = max(float((dk - dp).abs().max()), float((okk != okp).max()),
-              float((lk - lp).abs().max()))
-    if not (torch.equal(dk, dp) and torch.equal(okk, okp) and torch.equal(lk, lp)):
-        raise AssertionError(f"corner-halo kernel differs from its plain version ({err})")
-    t_k = timer.ms(lambda: mc.corner_halo(vol, cand, 0.5), spin=True)
-    t_p = timer.ms(lambda: mc._pack_left_plain(mc._corner_stacks(vol, cand, 0.5)[1]),
-                   spin=True)
-    K = int(cand.shape[0])
-    kernels.append(record("mc_corner_halo", "cpu_tsdf_tpu_torch/csrc/mc_corner_halo.cu",
-                          "cpu_tsdf_tpu/ops/marching_cubes.py:695",
-                          main_launches["corner_halo"], err, t_k, t_p,
-                          mc.bytes_moved_corner_halo(K), K * 512 * 48))
-    log(f"corner halo: {K} candidate bricks, {int(okk.sum())} cubes, kernel {t_k:.4f} ms, "
-        f"plain {t_p:.4f} ms")
-
-    # the real triangle mask of the extraction's kernel route
-    ids = mc._compact_from_loc(okk, lk)
-    vals = dk[ids] * cfg.max_dist_neg
-    _, ntris = mc._case_rows(vals)
-    tri = (torch.arange(mc.MAX_TRIS_PER_CUBE, device=dev)[None] < ntris[:, None]).reshape(-1)
-    tri = torch.cat([tri, tri.new_zeros((-tri.shape[0]) % 512)]).to(torch.int32).reshape(-1, 512)
-    gen = torch.Generator(device=dev).manual_seed(3)
-    rand = (torch.rand(tri.shape, generator=gen, device=dev) < 0.3).to(torch.int32)
-    err = 0.0
-    for m in (rand, tri):
-        lk, lp = mc.pack_left_rows(m), mc._pack_left_plain(m)
-        err = max(err, float((lk - lp).abs().max()))
-        if not torch.equal(lk, lp):
-            raise AssertionError(f"pack-left kernel differs from its plain version ({err})")
-    t_k = timer.ms(lambda: mc.pack_left_rows(tri), spin=True)
-    t_p = timer.ms(lambda: mc._pack_left_plain(tri), spin=True)
-    NB = int(tri.shape[0])
-    kernels.append(record("pack_left", "cpu_tsdf_tpu_torch/csrc/pack_left.cu",
-                          "cpu_tsdf_tpu/ops/marching_cubes.py:631",
-                          main_launches["pack_left"], err, t_k, t_p,
-                          mc.bytes_moved_pack_left(NB), NB * 512 * 4))
-    log(f"pack-left: {NB} rows, kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
+    kernels += mc_phase(torch, mc, vol, main_launches, timer)
 
     # ---- phase 5: whole-path parity, kernels vs plain engine --------------
     n_par = 8

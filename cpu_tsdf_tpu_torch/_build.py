@@ -25,14 +25,14 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-KERNELS = ("fusion", "mc_corner_halo", "pack_left", "raycast")
+KERNELS = ("fusion", "mc_corner_halo", "mc_emit", "raycast")
 
-# --fmad=false: the fusion and ray-march kernels must reproduce their plain
-# versions' float32 rounding op for op (a contracted FMA in the projection
-# moves a voxel onto the next depth pixel, see csrc/fusion.cu; in the march
-# it moves a sample onto the next voxel, see csrc/raycast.cu); the MC
-# kernels only compare and copy, so the flag costs them nothing. No
-# --use_fast_math anywhere.
+# --fmad=false: the fusion, ray-march and MC emission kernels must
+# reproduce their plain versions' float32 rounding op for op (a contracted
+# FMA in the projection moves a voxel onto the next depth pixel, see
+# csrc/fusion.cu; in the march it moves a sample onto the next voxel, see
+# csrc/raycast.cu; in the emission it moves a vertex by an ulp, see
+# csrc/mc_emit.cu). No --use_fast_math anywhere.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

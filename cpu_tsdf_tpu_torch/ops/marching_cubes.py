@@ -7,18 +7,23 @@ One extraction is:
   1. candidate bricks: per-brick (min, max) of the valid d, combined over
      the brick and its seven +1 neighbours, must straddle 0 — a superset of
      the bricks holding a crossing cube;
-  2. corner stacks, the reference's cube filter and a per-brick compaction
-     for the candidates (kernel 2, ``csrc/mc_corner_halo.cu``; its plain
-     version :func:`_corner_stacks` + :func:`_pack_left_plain`);
-  3. global compaction of the crossing cubes, table lookup, edge
-     interpolation (PCL's interpolateEdge on the voxel-centre lattice) and
-     triangle emission; on the kernel route the triangles are compacted
-     first with the pack-left kernel (kernel 3, ``csrc/pack_left.cu``).
+  2. the reference's cube filter over the candidates' cubes, then table
+     lookup, edge interpolation (PCL's interpolateEdge on the voxel-centre
+     lattice) and triangle emission.
 
-Budgets are sized from exact counts (host syncs: the candidate list, the
-cube count, the triangle count), so nothing overflows and there is no
-retry. The triangle order is the JAX package's: ascending slot of the
-candidate brick, then voxel, then triangle slot of the case table.
+The kernel route runs step 2 as two kernels: the corner halo
+(``csrc/mc_corner_halo.cu``) compacts each brick's crossing cubes with
+their corner values and triangle counts, and the emission kernel
+(``csrc/mc_emit.cu``) writes each brick's triangles at its offset in the
+mesh; their plain versions are :func:`_corner_halo_plain` and
+:func:`_emit_plain`. The plain route (:func:`_corner_stacks`, a global
+``nonzero``, :func:`_emit_soup`) builds every corner stack and triangle
+slot and compacts them.
+
+Budgets are sized from exact counts, so nothing overflows and there is no
+retry: the kernel route syncs with the host twice (the candidate list, the
+triangle total). The triangle order is the JAX package's: ascending slot
+of the candidate brick, then voxel, then triangle slot of the case table.
 """
 
 from __future__ import annotations
@@ -39,10 +44,10 @@ from .mc_tables import CORNER_OFFSETS, EDGE_CORNERS, MAX_TRIS_PER_CUBE, TRI_COUN
 # Default minimum weight to mesh a voxel (marching_cubes_tsdf_octree.h:58).
 DEFAULT_MIN_WEIGHT = 2.5
 
-V = 512  # voxels of an 8^3 brick: the lane width of both kernels
+V = 512  # voxels of an 8^3 brick: the brick width of both kernels
 
 # Kernel launches since the last reset (plain runs not counted).
-launches = {"corner_halo": 0, "pack_left": 0}
+launches = {"corner_halo": 0, "emit": 0}
 
 # +1-neighbour directions; index (bx<<2)|(by<<1)|bz, as in the halo kernel.
 _NBR_BITS = tuple(((i >> 2) & 1, (i >> 1) & 1, i & 1) for i in range(8))
@@ -105,7 +110,7 @@ def _candidate_slots(bv, min_weight: float):
 
 
 # ---------------------------------------------------------------------------
-# step 2: corner stacks + cube filter (kernel 2) and pack-left (kernel 3)
+# step 2a: cube filter, corner stacks and compaction (the corner-halo kernel)
 # ---------------------------------------------------------------------------
 
 def _interior_mask(cfg: TSDFConfig, coords, B: int, nv: int):
@@ -164,8 +169,9 @@ def _corner_stacks(bv, slots, min_weight: float):
 
 
 def _pack_left_plain(mask):
-    """Plain version of the pack-left kernel: loc[k, r] = lane of the r-th
-    lane of row k with mask > 0, -1 padded. [NB, L] -> int32 [NB, L]."""
+    """Stable per-row compaction (the JAX package's pack-left): loc[k, r] =
+    lane of the r-th lane of row k with mask > 0, -1 padded. [NB, L] ->
+    int32 [NB, L]. The corner halo's plain version ranks cubes with it."""
     on = mask > 0
     NB, L = on.shape
     rank = torch.cumsum(on, 1) - 1
@@ -175,16 +181,47 @@ def _pack_left_plain(mask):
     return loc[:, :L].contiguous()
 
 
-def corner_halo(bv, slots, min_weight: float):
-    """Corner stacks, cube filter and per-brick compaction for the bricks at
-    ``slots`` (int32 [K]): returns (dstack [K*512, 8] f32, ok [K, 512]
-    bool, loc [K, 512] int32).
+def _cube_index(vals):
+    """PCL cubeindex [N] int64 of corner values [N, 8] in meters: bit i set
+    iff corner i's value < 0."""
+    return ((vals < 0.0).long() << torch.arange(8, device=vals.device)).sum(1)
 
-    On CPU tensors: :func:`_corner_stacks` + :func:`_pack_left_plain`. On
-    CUDA tensors: csrc/mc_corner_halo.cu (8^3 bricks only)."""
+
+def _corner_halo_plain(bv, slots, min_weight: float):
+    """Plain version of the corner-halo kernel: :func:`_corner_stacks` and
+    :func:`_pack_left_plain`, then a gather of the crossing cubes' stacks.
+    See :func:`corner_halo` for the outputs; here the corner rows from
+    count[k] on are 0."""
+    nv = bv.brick_size ** 3
+    dstack, ok = _corner_stacks(bv, slots, min_weight)
+    loc = _pack_left_plain(ok)
+    on = loc >= 0
+    rows = torch.arange(ok.shape[0], device=ok.device)[:, None] * nv
+    corners = torch.where(on[..., None], dstack[torch.where(on, rows + loc, 0)], 0.0)
+    cubeindex = _cube_index(corners.reshape(-1, 8) * bv.config.max_dist_neg).reshape(on.shape)
+    cube = torch.where(on, cubeindex * nv + loc, -1).to(torch.int32)
+    tri_count = torch.as_tensor(TRI_COUNT, dtype=torch.int32, device=ok.device)
+    ntri = torch.where(on, tri_count[cubeindex], 0).sum(1, dtype=torch.int32)
+    return on.sum(1, dtype=torch.int32), cube, corners, ntri
+
+
+def corner_halo(bv, slots, min_weight: float):
+    """Cube filter, per-brick compaction and corner stacks of the crossing
+    cubes of the bricks at ``slots`` (int32 [K]; dead = negative, >= C, or
+    a slot with coords -1). Returns, with nv = B^3:
+
+      count   int32 [K]        crossing cubes of each brick;
+      cube    int32 [K, nv]    cubeindex * nv + voxel of the r-th crossing
+                               cube (voxel order), -1 from count[k] on;
+      corners f32 [K, nv, 8]   its normalized d in PCL corner order; rows
+                               from count[k] on are not part of the result;
+      ntri    int32 [K]        triangles of the brick's crossing cubes.
+
+    The cubeindex is PCL's over the values in meters (d * max_dist_neg).
+    On CPU tensors: :func:`_corner_halo_plain`. On CUDA tensors:
+    csrc/mc_corner_halo.cu (8^3 bricks only)."""
     if bv.device.type == "cpu":
-        dstack, ok = _corner_stacks(bv, slots, min_weight)
-        return dstack, ok, _pack_left_plain(ok)
+        return _corner_halo_plain(bv, slots, min_weight)
     from .._build import check, check_tensor, function, stream_ptr
 
     dev = bv.device
@@ -198,59 +235,27 @@ def corner_halo(bv, slots, min_weight: float):
                                ("brick_map", bv.brick_map, torch.int32, nb),
                                ("coords", bv.coords, torch.int32, (C, 3))):
         check_tensor(f"corner_halo: {what}", t, dt, shape, dev)
-    dstack = torch.empty((K * V, 8), dtype=torch.float32, device=dev)
-    ok = torch.empty((K, V), dtype=torch.int32, device=dev)
-    loc = torch.empty((K, V), dtype=torch.int32, device=dev)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = function("mc_corner_halo", "tsdf_corner_halo",
-                  [p] * 5 + [i] * 8 + [ctypes.c_float] + [p] * 4)
+    if bv.sdf.data_ptr() % 16 or bv.weight.data_ptr() % 16:
+        raise ValueError("corner_halo: sdf and weight must be 16-byte aligned")
+    count = torch.empty((K,), dtype=torch.int32, device=dev)
+    cube = torch.empty((K, V), dtype=torch.int32, device=dev)
+    corners = torch.empty((K, V, 8), dtype=torch.float32, device=dev)
+    ntri = torch.empty((K,), dtype=torch.int32, device=dev)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = function("mc_corner_halo", "tsdf_corner_halo", [p] * 5 + [i] * 8 + [f, f] + [p] * 5)
     cfg = bv.config
     err = fn(bv.sdf.data_ptr(), bv.weight.data_ptr(), bv.brick_map.data_ptr(),
              bv.coords.data_ptr(), slots.data_ptr(), K, C, *nb,
-             cfg.xres, cfg.yres, cfg.zres, float(min_weight),
-             dstack.data_ptr(), ok.data_ptr(), loc.data_ptr(), stream_ptr(dev))
+             cfg.xres, cfg.yres, cfg.zres, float(min_weight), cfg.max_dist_neg,
+             count.data_ptr(), cube.data_ptr(), corners.data_ptr(), ntri.data_ptr(),
+             stream_ptr(dev))
     check(err, "corner_halo")
     launches["corner_halo"] += 1
-    return dstack, ok > 0, loc
-
-
-def pack_left_rows(mask2d):
-    """Per-row pack-left table of an int32 [NB, 512] mask (set = > 0).
-
-    On CPU tensors: :func:`_pack_left_plain`. On CUDA tensors:
-    csrc/pack_left.cu."""
-    if mask2d.device.type == "cpu":
-        return _pack_left_plain(mask2d)
-    from .._build import check, check_tensor, function, stream_ptr
-
-    NB = mask2d.shape[0]
-    check_tensor("pack_left_rows: mask", mask2d, torch.int32, (NB, V), mask2d.device)
-    loc = torch.empty((NB, V), dtype=torch.int32, device=mask2d.device)
-    p = ctypes.c_void_p
-    fn = function("pack_left", "tsdf_pack_left", [p, p, ctypes.c_int, p])
-    check(fn(mask2d.data_ptr(), loc.data_ptr(), NB, stream_ptr(mask2d.device)),
-          "pack_left_rows")
-    launches["pack_left"] += 1
-    return loc
-
-
-def _compact_from_loc(mask2d, loc):
-    """Flat indices (ascending, int64) of the set entries of mask2d [NB, L],
-    from its per-row pack-left table: row offsets plus one gather instead
-    of a global scan of every element. One host sync (the count)."""
-    NB, L = mask2d.shape
-    cnt = (mask2d > 0).sum(1)
-    off = torch.cumsum(cnt, 0) - cnt                                  # exclusive
-    n = int(cnt.sum())
-    r = torch.arange(n, device=mask2d.device)
-    # the last row whose offset is <= r holds the r-th entry (an empty row
-    # shares its offset with the next one, which wins)
-    blk = torch.searchsorted(off, r, right=True) - 1
-    return blk * L + loc[blk, r - off[blk]].long()
+    return count, cube, corners, ntri
 
 
 # ---------------------------------------------------------------------------
-# step 3: triangle emission
+# step 2b: triangle emission (the emission kernel)
 # ---------------------------------------------------------------------------
 
 def _edge_points(cfg: TSDFConfig, ci, cj, ck, vals):
@@ -279,60 +284,128 @@ def _edge_points(cfg: TSDFConfig, ci, cj, ck, vals):
     return p1 + mu[..., None] * (p2 - p1)
 
 
-def _case_rows(vals):
-    """Case-table rows: (edge ids [N, MAX, 3] int64, triangle counts [N])
-    from the PCL cubeindex (bit i set iff corner i's value < 0)."""
-    dev = vals.device
-    cubeindex = ((vals < 0.0).long() << torch.arange(8, device=dev)).sum(1)
+def _case_rows(cubeindex):
+    """Case-table rows of PCL cubeindices [N]: (edge ids [N, MAX, 3] int64,
+    triangle counts [N])."""
+    dev = cubeindex.device
     table = torch.as_tensor(TRI_TABLE, dtype=torch.int64, device=dev)
     count = torch.as_tensor(TRI_COUNT, dtype=torch.int64, device=dev)
     entries = torch.clamp(table[cubeindex], min=0).reshape(-1, MAX_TRIS_PER_CUBE, 3)
     return entries, count[cubeindex]
 
 
-def _finish(global_transform, verts, center_rgb, cube):
-    """Apply the global transform (cpp:122,128) and the per-cube colors."""
-    x, y, z = transform_points(global_transform, verts[..., 0], verts[..., 1],
-                               verts[..., 2])
-    verts = torch.stack([x, y, z], -1)
-    colors = None
-    if center_rgb is not None:
-        colors = center_rgb[cube][:, None, :].expand(-1, 3, 3).contiguous()
-    return MeshSoup(vertices=verts, colors=colors, num_triangles=int(verts.shape[0]))
-
-
-def _emit_soup(cfg, global_transform, ci, cj, ck, vals, center_rgb) -> MeshSoup:
-    """Plain route: every triangle slot of every cube, then a compaction to
-    the valid ones (flat order = cube, then triangle slot)."""
+def _triangles(cfg, global_transform, ci, cj, ck, vals, cubeindex):
+    """Every triangle of N cubes, in (cube, table slot) order: vertices
+    [T, 3, 3] after the global transform (cpp:122,128), and each triangle's
+    cube [T] int64. Every triangle slot of every cube is built, then the
+    valid ones are kept."""
     M = MAX_TRIS_PER_CUBE
     N = vals.shape[0]
     pts = _edge_points(cfg, ci, cj, ck, vals)
-    entries, ntris = _case_rows(vals)
+    entries, ntris = _case_rows(cubeindex)
     verts = pts[torch.arange(N, device=vals.device)[:, None, None], entries]  # [N,M,3,3]
     valid = torch.arange(M, device=vals.device)[None, :] < ntris[:, None]
     sel = torch.nonzero(valid.reshape(-1)).squeeze(1)
-    return _finish(global_transform, verts.reshape(N * M, 3, 3)[sel], center_rgb,
-                   sel // M)
+    verts = verts.reshape(N * M, 3, 3)[sel]
+    x, y, z = transform_points(global_transform, verts[..., 0], verts[..., 1],
+                               verts[..., 2])
+    return torch.stack([x, y, z], -1), sel // M
 
 
-def _emit_soup_compacted(cfg, global_transform, ci, cj, ck, vals,
-                         center_rgb) -> MeshSoup:
-    """Kernel route: compact the triangle slots FIRST (pack-left over the
-    [cube, slot] mask viewed as 512-lane rows, then _compact_from_loc) and
-    interpolate vertices only for the survivors. Same triangles, same order
-    as :func:`_emit_soup`."""
-    M = MAX_TRIS_PER_CUBE
-    N = vals.shape[0]
-    dev = vals.device
-    entries, ntris = _case_rows(vals)
-    valid = (torch.arange(M, device=dev)[None, :] < ntris[:, None]).reshape(-1)
-    pad = (-valid.shape[0]) % V
-    mask2d = torch.cat([valid, valid.new_zeros(pad)]).to(torch.int32).reshape(-1, V)
-    sel = _compact_from_loc(mask2d, pack_left_rows(mask2d))
-    cube, slot = sel // M, sel % M
-    pts = _edge_points(cfg, ci, cj, ck, vals)
-    verts = pts[cube[:, None], entries[cube, slot]]                   # [T, 3, 3]
-    return _finish(global_transform, verts, center_rgb, cube)
+def _expand_colors(rgb):
+    """Per-triangle colors [T, 3] -> the soup's [T, 3, 3] (or None)."""
+    return None if rgb is None else rgb[:, None, :].expand(-1, 3, 3).contiguous()
+
+
+def _emit_soup(cfg, global_transform, ci, cj, ck, vals, center_rgb) -> MeshSoup:
+    """Plain route: the triangles of the N crossing cubes, colored by their
+    cube's center_rgb [N, 3] (or None)."""
+    verts, cube = _triangles(cfg, global_transform, ci, cj, ck, vals, _cube_index(vals))
+    rgb = None if center_rgb is None else center_rgb[cube]
+    return MeshSoup(vertices=verts, colors=_expand_colors(rgb),
+                    num_triangles=int(verts.shape[0]))
+
+
+def _emit_plain(bv, slots, count, cube, corners):
+    """Plain version of the emission kernel, on corner_halo's outputs:
+    (vertices [T, 3, 3] f32 after the global transform, tri_cube [T] int32
+    = slot * nv + voxel of each triangle's cube), in candidate order, then
+    rank, then case-table slot."""
+    cfg, B = bv.config, bv.brick_size
+    nv = B ** 3
+    live = torch.arange(nv, device=cube.device)[None, :] < count[:, None]
+    k, r = torch.nonzero(live, as_tuple=True)
+    code = cube[k, r].long()
+    within, cubeindex = code % nv, code // nv
+    brick = slots[k].long()
+    cs = bv.coords[brick]
+    verts, of = _triangles(cfg, bv.global_transform, cs[:, 0] * B + within // (B * B),
+                           cs[:, 1] * B + (within // B) % B, cs[:, 2] * B + within % B,
+                           corners[k, r] * cfg.max_dist_neg, cubeindex)
+    return verts, (brick * nv + within)[of].to(torch.int32)
+
+
+def emit_triangles(bv, slots, count, cube, corners, tri_off, n_tri: int):
+    """The triangles of corner_halo's crossing cubes: (vertices [n_tri, 3, 3]
+    f32 after the global transform, tri_cube [n_tri] int32 = slot * 512 +
+    voxel of each triangle's cube), in candidate order, then rank, then
+    case-table slot. tri_off int32 [K] is each brick's first triangle (the
+    exclusive prefix sum of corner_halo's ntri) and n_tri the total.
+
+    On CPU tensors: :func:`_emit_plain`. On CUDA tensors: csrc/mc_emit.cu
+    (8^3 bricks only)."""
+    if bv.device.type == "cpu":
+        return _emit_plain(bv, slots, count, cube, corners)
+    from .._build import check, check_tensor, function, stream_ptr
+
+    dev = bv.device
+    C, K = bv.capacity, slots.shape[0]
+    if bv.brick_size != 8:
+        raise ValueError("the emission kernel takes 8^3 bricks only")
+    for what, t, dt, shape in (("slots", slots, torch.int32, (K,)),
+                               ("coords", bv.coords, torch.int32, (C, 3)),
+                               ("count", count, torch.int32, (K,)),
+                               ("cube", cube, torch.int32, (K, V)),
+                               ("corners", corners, torch.float32, (K, V, 8)),
+                               ("tri_off", tri_off, torch.int32, (K,)),
+                               ("global_transform", bv.global_transform,
+                                torch.float32, (4, 4))):
+        check_tensor(f"emit_triangles: {what}", t, dt, shape, dev)
+    if corners.data_ptr() % 16:
+        raise ValueError("emit_triangles: corners must be 16-byte aligned")
+    verts = torch.empty((n_tri, 3, 3), dtype=torch.float32, device=dev)
+    tri_cube = torch.empty((n_tri,), dtype=torch.int32, device=dev)
+    if K == 0 or n_tri == 0:
+        return verts, tri_cube
+    cfg = bv.config
+    grid = (ctypes.c_float * 7)(*cfg.cell_size, cfg.xsize / 2.0, cfg.ysize / 2.0,
+                                cfg.zsize / 2.0, cfg.max_dist_neg)
+    p = ctypes.c_void_p
+    fn = function("mc_emit", "tsdf_mc_emit",
+                  [p] * 7 + [ctypes.c_int, ctypes.POINTER(ctypes.c_float), p, p, p])
+    err = fn(slots.data_ptr(), bv.coords.data_ptr(), count.data_ptr(), cube.data_ptr(),
+             corners.data_ptr(), tri_off.data_ptr(), bv.global_transform.data_ptr(), K,
+             grid, verts.data_ptr(), tri_cube.data_ptr(), stream_ptr(dev))
+    check(err, "emit_triangles")
+    launches["emit"] += 1
+    return verts, tri_cube
+
+
+def _voxel_rgb(bv, flat, color_by_rgb: bool, color_by_confidence: bool):
+    """Colors [N, 3] of the voxels at flat indices ``flat`` (slot * nv +
+    voxel; a cube's color is its lower-corner voxel's, cpp:216-230), or
+    None when the mesh is not colored."""
+    cfg = bv.config
+    if color_by_rgb and bv.color is not None:
+        r, g, b = color_ops.color_to_rgb(
+            cfg.color_mode, bv.color.reshape(-1, bv.color.shape[-1])[flat.long()])
+        return torch.stack([r, g, b], -1)
+    if color_by_confidence:
+        std_dev = div_const(100.0 - bv.weight.reshape(-1)[flat.long()], 100.0)
+        r = torch.clamp((1.0 - std_dev) * 255.0, 0.0, 255.0)
+        b = torch.clamp(std_dev * 255.0, 0.0, 255.0)
+        return torch.stack([r, torch.zeros_like(r), b], -1)
+    return None
 
 
 def _empty_soup(device, colored: bool) -> MeshSoup:
@@ -350,8 +423,9 @@ def extract_soup_bricks(bv, min_weight: float = DEFAULT_MIN_WEIGHT,
                         use_kernel: Optional[bool] = None) -> MeshSoup:
     """Brick-native extraction on the volume's device.
 
-    use_kernel: None = kernels 2 and 3 on the card, the plain route on the
-    CPU; False = the plain route anywhere; True on the CPU raises."""
+    use_kernel: None = the corner-halo and emission kernels on the card, the
+    plain route on the CPU; False = the plain route anywhere; True on the
+    CPU raises."""
     return _extract(bv, min_weight, color_by_rgb, color_by_confidence,
                     resolve_use_kernel(use_kernel, bv.device))
 
@@ -362,15 +436,21 @@ def _extract(bv, min_weight, color_by_rgb, color_by_confidence, kernel: bool):
     cfg, B = bv.config, bv.brick_size
     nv = B ** 3
     colored = color_by_confidence or (color_by_rgb and bv.color is not None)
-    cand = _candidate_slots(bv, min_weight)
+    cand = _candidate_slots(bv, min_weight)               # host sync 1
     if cand.shape[0] == 0:
         return _empty_soup(bv.device, colored)
     if kernel:
-        dstack, ok, loc = corner_halo(bv, cand, min_weight)
-        ids = _compact_from_loc(ok, loc)
-    else:
-        dstack, ok = _corner_stacks(bv, cand, min_weight)
-        ids = torch.nonzero(ok.reshape(-1)).squeeze(1)
+        count, cube, corners, ntri = corner_halo(bv, cand, min_weight)
+        ends = torch.cumsum(ntri, 0, dtype=torch.int32)
+        n_tri = int(ends[-1])                               # host sync 2
+        if n_tri == 0:
+            return _empty_soup(bv.device, colored)
+        verts, tri_cube = emit_triangles(bv, cand, count, cube, corners, ends - ntri, n_tri)
+        rgb = _voxel_rgb(bv, tri_cube, color_by_rgb, color_by_confidence)
+        return MeshSoup(vertices=verts, colors=_expand_colors(rgb), num_triangles=n_tri)
+
+    dstack, ok = _corner_stacks(bv, cand, min_weight)
+    ids = torch.nonzero(ok.reshape(-1)).squeeze(1)          # host sync 2
     if ids.shape[0] == 0:
         return _empty_soup(bv.device, colored)
     brick = cand[ids // nv].long()                 # slot of each crossing cube
@@ -380,19 +460,8 @@ def _extract(bv, min_weight, color_by_rgb, color_by_confidence, kernel: bool):
     ci = cs[:, 0] * B + within // (B * B)
     cj = cs[:, 1] * B + (within // B) % B
     ck = cs[:, 2] * B + within % B
-
-    center_rgb = None  # per-cube color from the lower-corner voxel (cpp:216-230)
-    if color_by_rgb and bv.color is not None:
-        r, g, b = color_ops.color_to_rgb(cfg.color_mode, bv.color[brick, within])
-        center_rgb = torch.stack([r, g, b], -1)
-    elif color_by_confidence:
-        std_dev = div_const(100.0 - bv.weight[brick, within], 100.0)
-        r = torch.clamp((1.0 - std_dev) * 255.0, 0.0, 255.0)
-        b = torch.clamp(std_dev * 255.0, 0.0, 255.0)
-        center_rgb = torch.stack([r, torch.zeros_like(r), b], -1)
-
-    emit = _emit_soup_compacted if kernel else _emit_soup
-    return emit(cfg, bv.global_transform, ci, cj, ck, vals, center_rgb)
+    center_rgb = _voxel_rgb(bv, brick * nv + within, color_by_rgb, color_by_confidence)
+    return _emit_soup(cfg, bv.global_transform, ci, cj, ck, vals, center_rgb)
 
 
 def extract_mesh_bricks(bv, min_weight: float = DEFAULT_MIN_WEIGHT,
@@ -420,12 +489,24 @@ def extract_mesh(vol, min_weight: float = DEFAULT_MIN_WEIGHT,
                                use_kernel)
 
 
-def bytes_moved_corner_halo(n_bricks: int) -> int:
+def bytes_moved_corner_halo(n_bricks: int, n_cubes: int) -> int:
     """Least traffic of one corner_halo call: each candidate's 9^3 halo of
-    d and w read once, its 8 corner values, ok and loc written once."""
+    d and w read once; its cube table (512 entries: the crossing cubes'
+    codes and the -1 after them), count and triangle count written once,
+    and 32 B of corners for each of the n_cubes crossing cubes."""
+    return n_bricks * (9 ** 3 * 2 * 4 + V * 4 + 8) + n_cubes * 8 * 4
+
+
+def bytes_moved_dense_stack(n_bricks: int) -> int:
+    """Least traffic of the former dense corner-halo contract, kept as a
+    yardstick: the 9^3 halo read, every voxel's 8 corner values, ok and loc
+    written."""
     return n_bricks * (9 ** 3 * 2 * 4 + V * (8 + 2) * 4)
 
 
-def bytes_moved_pack_left(n_rows: int) -> int:
-    """Least traffic of one pack_left_rows call: the mask read, loc written."""
-    return 2 * n_rows * V * 4
+def bytes_moved_emit(n_bricks: int, n_cubes: int, n_tris: int) -> int:
+    """Least traffic of one emit_triangles call: per candidate its slot,
+    coords, count and first triangle (24 B); per crossing cube its code and
+    8 corners (36 B); the transform's 3 rows (48 B); per triangle its 3
+    vertices and cube reference written (40 B)."""
+    return n_bricks * 24 + n_cubes * 36 + 48 + n_tris * 40

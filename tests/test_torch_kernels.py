@@ -123,34 +123,92 @@ def test_fusion_kernel_rejects_bad_input(cuda_device):
                        vol.nsample)
 
 
-def test_mc_kernels_match_plain(cuda_device):
-    """Corner halo (stacks, filter, per-brick compaction) and pack-left
-    exact; the kernel route's mesh equals the plain route's."""
-    vol, _ = _volumes(cuda_device, "RGB")
+# (color mode of the volume, color_by_rgb, color_by_confidence, a brick
+# list with count = 0 bricks and a moved global transform)
+MC_CASES = {
+    "no_color": (None, False, False, False),
+    "rgb": ("RGB", True, False, False),
+    "confidence": ("RGB", False, True, False),
+    "lab": ("LAB", True, False, False),
+    "zero_count_bricks": ("RGB", True, False, True),
+}
+
+
+@pytest.mark.parametrize("case", list(MC_CASES))
+def test_mc_kernels_match_plain(cuda_device, case):
+    """The corner halo (count, cube table, triangle counts and the live
+    corner rows exact) and the emission (triangles, cube references and
+    vertices bit-equal) against their plain versions on the card, then the
+    kernel route's mesh against the plain route's, colors included. The
+    count = 0 case puts dead, out-of-range and negative slots between the
+    candidates and moves the global transform."""
+    mode, rgb, conf, zero = MC_CASES[case]
+    vol, _ = _volumes(cuda_device, mode)
     cand = mc._candidate_slots(vol, 0.5)
     assert cand.shape[0] > 50
-    # a dead slot and an out-of-range one ride along: no cube, d = -1
-    slots = torch.cat([cand, torch.tensor([vol.capacity - 1, vol.capacity + 5],
-                                          dtype=torch.int32, device=cuda_device)])
-    dk, okk, lk = mc.corner_halo(vol, slots, 0.5)
-    dp, okp = mc._corner_stacks(vol, slots, 0.5)
+    if zero:
+        C = vol.capacity
+        dead = torch.tensor([C - 1, C + 5, -3], dtype=torch.int32, device=cuda_device)
+        cand = torch.cat([dead, cand[:7], dead, cand[7:], dead])
+        a = 0.5
+        moved = torch.tensor([[np.cos(a), -np.sin(a), 0.0, 0.2], [np.sin(a), np.cos(a), 0.0, -0.1],
+                              [0.0, 0.0, 1.0, 0.8], [0.0, 0.0, 0.0, 1.0]],
+                             dtype=torch.float32, device=cuda_device)
+        vol = dataclasses.replace(vol, global_transform=moved)
+    before = dict(mc.launches)
+    count, cube, corners, ntri = mc.corner_halo(vol, cand, 0.5)
+    pcount, pcube, pcorners, pntri = mc._corner_halo_plain(vol, cand, 0.5)
+    live = torch.arange(512, device=cuda_device)[None] < count[:, None]
+    assert torch.equal(count, pcount) and torch.equal(cube, pcube) and torch.equal(ntri, pntri)
+    assert torch.equal(corners[live], pcorners[live])
+    if zero:
+        assert int((count == 0).sum()) >= 9 and (cube[:3] == -1).all()
+    ends = torch.cumsum(ntri, 0, dtype=torch.int32)
+    n = int(ends[-1])
+    vk, tk = mc.emit_triangles(vol, cand, count, cube, corners, ends - ntri, n)
+    vp, tp = mc._emit_plain(vol, cand, count, cube, corners)
     torch.cuda.synchronize()
-    assert torch.equal(dk, dp) and torch.equal(okk, okp)
-    assert torch.equal(lk, mc._pack_left_plain(okp))
-    assert not okk[-2:].any() and (dk[-1024:] == -1).all()
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    for density in (0.0, 0.02, 0.5, 1.0):
-        mask = (torch.rand((301, 512), generator=gen, device=cuda_device)
-                < density).to(torch.int32)
-        assert torch.equal(mc.pack_left_rows(mask), mc._pack_left_plain(mask))
-    for rgb, conf in ((False, False), (True, False), (False, True)):
-        sk = mc.extract_soup_bricks(vol, 0.5, rgb, conf, use_kernel=True)
-        sp = mc.extract_soup_bricks(vol, 0.5, rgb, conf, use_kernel=False)
-        assert sk.num_triangles == sp.num_triangles > 1000
-        assert torch.equal(sk.vertices, sp.vertices)
-        assert (sk.colors is None) == (sp.colors is None)
-        if sk.colors is not None:
-            assert torch.equal(sk.colors, sp.colors)
+    assert mc.launches == {"corner_halo": before["corner_halo"] + 1, "emit": before["emit"] + 1}
+    assert vk.shape == vp.shape and torch.equal(tk, tp)
+    assert torch.equal(vk, vp), int((vk != vp).any(-1).any(-1).sum())
+    sk = mc.extract_soup_bricks(vol, 0.5, rgb, conf, use_kernel=True)
+    sp = mc.extract_soup_bricks(vol, 0.5, rgb, conf, use_kernel=False)
+    assert sk.num_triangles == sp.num_triangles > 1000
+    assert torch.equal(sk.vertices, sp.vertices)
+    assert (sk.colors is None) == (sp.colors is None) == (not (rgb or conf))
+    if sk.colors is not None:
+        assert torch.equal(sk.colors, sp.colors)
+
+
+def test_mc_empty_extractions_launch_nothing(cuda_device):
+    """An empty volume has no candidate; a brick list of dead slots has no
+    crossing cube: both give the empty soup, and no emission is launched
+    for zero triangles."""
+    vol = tb.make_brick_volume(CFG.with_updates(integrate_color=True, color_mode="RGB"), 8,
+                               64, device=cuda_device)
+    before = dict(mc.launches)
+    soup = mc.extract_soup_bricks(vol, 0.5, True)
+    assert soup.num_triangles == 0 and soup.colors.shape == (0, 3, 3)
+    assert mc.launches == before
+    dead = torch.tensor([vol.capacity - 1, vol.capacity + 2], dtype=torch.int32,
+                        device=cuda_device)
+    count, cube, corners, ntri = mc.corner_halo(vol, dead, 0.5)
+    assert int(count.sum()) == 0 and int(ntri.sum()) == 0 and (cube == -1).all()
+    verts, tri_cube = mc.emit_triangles(vol, dead, count, cube, corners,
+                                        torch.zeros_like(ntri), 0)
+    assert verts.shape == (0, 3, 3) and tri_cube.shape == (0,)
+    assert mc.launches == {"corner_halo": before["corner_halo"] + 1, "emit": before["emit"]}
+
+
+def test_mc_bound_bytes():
+    """The MC kernels' least traffic: the corner halo reads each candidate's
+    9^3 halo of d and w and writes its cube table, two counts and 32 B of
+    corners a crossing cube (the former dense stack wrote 40 B a voxel);
+    the emission reads 36 B a crossing cube and writes 40 B a triangle."""
+    assert mc.bytes_moved_corner_halo(2078, 0) == 2078 * (5832 + 2048 + 8)
+    assert mc.bytes_moved_corner_halo(1, 10) - mc.bytes_moved_corner_halo(1, 0) == 320
+    assert mc.bytes_moved_dense_stack(2078) == 54_676_336
+    assert mc.bytes_moved_emit(2, 3, 5) == 2 * 24 + 3 * 36 + 48 + 5 * 40
 
 
 # (config options, brick size of the render: 0 = dense, downsample_by,
@@ -255,6 +313,49 @@ def test_probe_tail_cut():
     assert probe.TAIL_CALL not in cut and len(cut) == len(src) - len(probe.TAIL_CALL)
     with pytest.raises(RuntimeError):
         probe.tail_cut(cut)
+
+
+def test_probe_direct_store():
+    """tools/kernel_probe.py times a scratch copy of mc_emit.cu whose threads
+    store their own triangles; the three passages it replaces must stay in
+    the source."""
+    import importlib.util
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location("kernel_probe",
+                                                  root / "tools" / "kernel_probe.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    src = (root / "cpu_tsdf_tpu_torch" / "csrc" / "mc_emit.cu").read_text()
+    direct = probe.direct_store(src)
+    assert "st_v" not in direct and "st_c" not in direct
+    assert direct.count("tri_cube[base + first + i] = ref;") == 1
+    with pytest.raises(RuntimeError):
+        probe.direct_store(direct)
+
+
+def test_probe_block_width():
+    """tools/kernel_probe.py times the MC kernels at other block widths by
+    rewriting their one kThreads line, which the kernels' other sizes
+    derive from."""
+    import importlib.util
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location("kernel_probe",
+                                                  root / "tools" / "kernel_probe.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    srcs = probe.mc_sources(root / "cpu_tsdf_tpu_torch" / "csrc")
+    assert "constexpr int kThreads = 128;" in srcs["mc_corner_halo"]
+    assert "constexpr int kThreads = 128;" in srcs["mc_emit"]
+    for name, text in srcs.items():
+        assert text.count("constexpr int kThreads = ") == 1, name
+    assert "constexpr int kThreads = 512;" in srcs["mc_corner_halo_512"]
+    assert "constexpr int kThreads = 64;" in srcs["mc_emit_64"]
+    with pytest.raises(RuntimeError):
+        probe.block_width("int x;", 64)
 
 
 def test_raycast_kernel_rejects_bad_input(cuda_device):

@@ -1,28 +1,39 @@
 #!/usr/bin/env python3
-"""Build report of the ray-march and fusion kernels, and the ray march's
-warp mapping and tail share, on one NVIDIA card.
+"""Build report of the port's kernels, the ray march's warp mapping and
+tail share, and the MC emission's store design, on one NVIDIA card.
 
     python3 tools/kernel_probe.py [--parent DIR]
 
-Builds csrc/raycast.cu and csrc/fusion.cu (and, with --parent, the same
-files of another checkout, e.g. the parent commit unpacked by git archive)
-with the package's nvcc flags, and reports per kernel function the
-registers, stack and spills (ptxas -v), the SASS instruction count, the
-integer-division signature in it (on sm_90 a 32-bit division by a runtime
-value is I2F.RP + MUFU.RCP for the divisor's reciprocal, then IABS and
-IMAD.HI.U32 for each quotient), and the occupancy the registers allow. The
-SASS listings go beside the libraries under build/torch_kernels/probe/.
-Then it fuses chip_smoke.py's 48-frame scene (512^3, 640x480) and times, as
-CUDA-event medians of 10 launches with the L2 flushed and the card spun
-(chip_smoke's Timer), on pose 24's 307,200 rays, each checked bit-equal to
-march_plain:
+Builds csrc/raycast.cu, fusion.cu, mc_corner_halo.cu and mc_emit.cu (and,
+with --parent, the kernel sources of another checkout, e.g. the parent
+commit unpacked by git archive) with the package's nvcc flags, and reports
+per kernel function the registers, stack, spills and shared memory (ptxas
+-v), the SASS instruction count, the integer-division signature in it (on
+sm_90 a 32-bit division by a runtime value is I2F.RP + MUFU.RCP for the
+divisor's reciprocal, then IABS and IMAD.HI.U32 for each quotient), and the
+occupancy the registers and shared memory allow. The SASS listings go
+beside the libraries under build/torch_kernels/probe/. Then it fuses
+chip_smoke.py's 48-frame scene (512^3, 640x480) and times, as CUDA-event
+medians of 10 launches with the L2 flushed and the card spun (chip_smoke's
+Timer):
 
-  * the ray march as march() launches it (8x4 pixel tiles a warp) and with
-    a warp on 32 pixels of one row (tile_width 0, the mapping for rays that
-    do not form an image);
-  * a scratch copy of raycast.cu without the refinement and normals (the
-    tail's share of the kernel; tail_cut names the one line it drops);
-  * the --parent tree's ray-march kernel on the same rays.
+  * on pose 24's 307,200 rays, each checked bit-equal to march_plain: the
+    ray march as march() launches it (8x4 pixel tiles a warp) and with a
+    warp on 32 pixels of one row (tile_width 0, the mapping for rays that
+    do not form an image); a scratch copy of raycast.cu without the
+    refinement and normals (the tail's share of the kernel; tail_cut names
+    the one line it drops); the --parent tree's ray-march kernel;
+  * on the extraction's candidates, each checked equal to the shipped
+    kernel: the corner halo at 128 (shipped), 64, 256 and 512 threads a
+    block and the emission at 128 (shipped) and 64 (block_width sets the
+    one kThreads line), and a scratch copy of the emission that stores each
+    triangle from its thread instead of staging a chunk's triangles in
+    shared memory for coalesced stores (direct_store names the three
+    passages it replaces);
+  * with --parent, the parent's triangle compaction on its real triangle
+    mask: the pack-left kernel alone, pack_left_rows + _compact_from_loc,
+    and torch.nonzero over the same mask (the one PyTorch call that
+    computes the same flat indices, checked equal).
 
 Prints one JSON object on stdout and writes it to
 build/torch_kernels/probe/kernel_probe.json.
@@ -74,7 +85,8 @@ def build_all(sources: dict) -> dict:
 
 
 def ptxas_report(text: str) -> dict:
-    """{function: {registers, stack, spill_stores, spill_loads}} from -Xptxas -v."""
+    """{function: {registers, smem, stack, spill_stores, spill_loads}} from
+    -Xptxas -v."""
     rep, fn = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -89,15 +101,19 @@ def ptxas_report(text: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and fn:
             rep[fn]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            rep[fn]["smem"] = int(m.group(1)) if m else 0
     return rep
 
 
-def occupancy(registers: int, threads: int) -> float:
-    """Resident warps per SM over 64 that the registers allow (256-register
-    allocation units per warp, whole blocks, at most 32 blocks an SM)."""
+def occupancy(registers: int, threads: int, smem: int = 0) -> float:
+    """Resident warps per SM over 64 that the registers and shared memory
+    allow (256-register allocation units per warp; 228 KB of shared memory
+    an SM, 1 KB of it reserved per block; whole blocks, at most 32 an SM)."""
     per_warp = -(-registers * 32 // 256) * 256
     warps_per_block = threads // 32
-    blocks = min(32, 65536 // (per_warp * warps_per_block), 64 // warps_per_block)
+    blocks = min(32, 65536 // (per_warp * warps_per_block), 64 // warps_per_block,
+                 233472 // (smem + 1024))
     return blocks * warps_per_block / 64
 
 
@@ -139,7 +155,7 @@ def kernel_table(name: str, lib: Path, text: str, threads: dict) -> dict:
         row = {**r, **ptx.get(fn, {})}
         t = next((n for key, n in threads.items() if key in fn), None)
         if "registers" in row and t:
-            row["occupancy"] = occupancy(row["registers"], t)
+            row["occupancy"] = occupancy(row["registers"], t, row.get("smem", 0))
         table[fn] = row
         log(f"{name}: {fn}: { {k: v for k, v in row.items() if k != 'opcodes'} }")
     return table
@@ -153,6 +169,164 @@ def tail_cut(raycast_src: str) -> str:
     if raycast_src.count(TAIL_CALL) != 1:
         raise RuntimeError(f"tail_cut: {TAIL_CALL!r} not found once in raycast.cu")
     return raycast_src.replace(TAIL_CALL, "")
+
+
+# The emission kernel's staged stores, and what a thread storing its own
+# triangles puts in their place (direct_store).
+STAGE_DECL = """  __shared__ float st_v[kStage * 9];
+  __shared__ int st_c[kStage];
+"""
+STAGE_PUT = """        float* dst = st_v + (first + i) * 9;
+#pragma unroll
+        for (int q = 0; q < 9; ++q) dst[q] = out[q];
+        st_c[first + i] = ref;
+"""
+DIRECT_PUT = """        float* dst = verts + (size_t)(base + first + i) * 9;
+#pragma unroll
+        for (int q = 0; q < 9; ++q) dst[q] = out[q];
+        tri_cube[base + first + i] = ref;
+"""
+STAGE_OUT = """    __syncthreads();
+    float* dv = verts + (size_t)base * 9;
+    for (int f = t; f < total * 9; f += kThreads) dv[f] = st_v[f];
+    for (int f = t; f < total; f += kThreads) tri_cube[base + f] = st_c[f];
+"""
+
+
+def direct_store(emit_src: str) -> str:
+    """mc_emit.cu with each thread storing its triangles to device memory
+    itself: no stage in shared memory and no copy-out."""
+    for anchor in (STAGE_DECL, STAGE_PUT, STAGE_OUT):
+        if emit_src.count(anchor) != 1:
+            raise RuntimeError(f"direct_store: {anchor!r} not found once in mc_emit.cu")
+    return (emit_src.replace(STAGE_DECL, "").replace(STAGE_PUT, DIRECT_PUT)
+            .replace(STAGE_OUT, ""))
+
+
+def block_width(src: str, threads: int) -> str:
+    """A kernel source with its block width (``constexpr int kThreads``) set
+    to ``threads``."""
+    out, n = re.subn(r"constexpr int kThreads = \d+;", f"constexpr int kThreads = {threads};", src)
+    if n != 1:
+        raise RuntimeError("block_width: kThreads not defined once")
+    return out
+
+
+def load_parent(root: Path):
+    """The parent checkout's port package, imported under another name (its
+    modules import each other relatively, and build from their own csrc)."""
+    import importlib
+    import importlib.util
+
+    init = root / "cpu_tsdf_tpu_torch" / "__init__.py"
+    name = "parent_cpu_tsdf_tpu_torch"
+    spec = importlib.util.spec_from_file_location(name, init,
+                                                  submodule_search_locations=[str(init.parent)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module(f"{name}.ops.marching_cubes")
+
+
+HALO_WIDTHS = (128, 64, 256, 512)   # the first is the shipped block width
+EMIT_WIDTHS = (128, 64)
+
+
+def mc_sources(csrc: Path) -> dict:
+    """The MC kernels as shipped, at the other block widths, and the
+    emission with direct stores."""
+    halo = (csrc / "mc_corner_halo.cu").read_text()
+    emit = (csrc / "mc_emit.cu").read_text()
+    out = {"mc_corner_halo": halo, "mc_emit": emit, "mc_emit_direct": direct_store(emit)}
+    out.update({f"mc_corner_halo_{n}": block_width(halo, n) for n in HALO_WIDTHS[1:]})
+    out.update({f"mc_emit_{n}": block_width(emit, n) for n in EMIT_WIDTHS[1:]})
+    return out
+
+
+def mc_probe(torch, vol, timer, built, parent) -> dict:
+    """The corner halo at three block widths and the emission at two and
+    with direct stores, on the extraction's candidates, each checked equal
+    to the shipped kernel; with a parent, its triangle compaction against
+    torch.nonzero."""
+    from cpu_tsdf_tpu_torch import _build
+    from cpu_tsdf_tpu_torch.ops import marching_cubes as mc
+
+    cfg, dev = vol.config, vol.device
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    stream = _build.stream_ptr(dev)
+    cand = mc._candidate_slots(vol, 0.5)
+    K = int(cand.shape[0])
+    ref = mc.corner_halo(vol, cand, 0.5)
+    count, cube, corners, ntri = ref
+    ends = torch.cumsum(ntri, 0, dtype=torch.int32)
+    n_tri, off = int(ends[-1]), ends - ntri
+    ref_v, ref_t = mc.emit_triangles(vol, cand, count, cube, corners, off, n_tri)
+    rep = {"bricks": K, "cubes": int(count.sum()), "triangles": n_tri, "halo_ms": {},
+           "emit_ms": {}}
+
+    outs = [torch.empty_like(x) for x in ref]
+    for name in [n for n in built if n.startswith("mc_corner_halo")]:
+        fn = ctypes.CDLL(str(built[name][0])).tsdf_corner_halo
+        fn.restype = ctypes.c_int
+        fn.argtypes = [p] * 5 + [i] * 8 + [f, f] + [p] * 5
+
+        def run(fn=fn, name=name):
+            _build.check(fn(vol.sdf.data_ptr(), vol.weight.data_ptr(), vol.brick_map.data_ptr(),
+                            vol.coords.data_ptr(), cand.data_ptr(), K, vol.capacity,
+                            *vol.bricks_per_axis, cfg.xres, cfg.yres, cfg.zres, 0.5,
+                            cfg.max_dist_neg, *(o.data_ptr() for o in outs), stream), name)
+        run()
+        torch.cuda.synchronize()
+        live = torch.arange(512, device=dev)[None] < count[:, None]
+        equal = (all(torch.equal(a, b) for a, b in zip(outs[:2] + outs[3:], ref[:2] + ref[3:]))
+                 and torch.equal(outs[2][live], corners[live]))
+        rep["halo_ms"][name] = {"ms": timer.ms(run, spin=True), "equal": equal}
+        log(f"corner halo {name}: {rep['halo_ms'][name]}")
+        if not equal:
+            raise AssertionError(f"{name} differs from corner_halo")
+
+    grid = (ctypes.c_float * 7)(*cfg.cell_size, cfg.xsize / 2.0, cfg.ysize / 2.0,
+                                cfg.zsize / 2.0, cfg.max_dist_neg)
+    verts = torch.empty_like(ref_v)
+    tri_cube = torch.empty_like(ref_t)
+    for name in [n for n in built if n.startswith("mc_emit")]:
+        fn = ctypes.CDLL(str(built[name][0])).tsdf_mc_emit
+        fn.restype = ctypes.c_int
+        fn.argtypes = [p] * 7 + [i, ctypes.POINTER(ctypes.c_float)] + [p] * 3
+
+        def run(fn=fn, name=name):
+            _build.check(fn(cand.data_ptr(), vol.coords.data_ptr(), count.data_ptr(),
+                            cube.data_ptr(), corners.data_ptr(), off.data_ptr(),
+                            vol.global_transform.data_ptr(), K, grid, verts.data_ptr(),
+                            tri_cube.data_ptr(), stream), name)
+        verts.fill_(float("nan"))
+        run()
+        torch.cuda.synchronize()
+        equal = torch.equal(verts, ref_v) and torch.equal(tri_cube, ref_t)
+        rep["emit_ms"][name] = {"ms": timer.ms(run, spin=True), "equal": equal}
+        log(f"emission {name}: {rep['emit_ms'][name]}")
+        if not equal:
+            raise AssertionError(f"{name} differs from emit_triangles")
+    if parent is None:
+        return rep
+    pcand = parent._candidate_slots(vol, 0.5)
+    dk, okk, lk = parent.corner_halo(vol, pcand, 0.5)
+    ids = parent._compact_from_loc(okk, lk)
+    _, ntris = parent._case_rows(dk[ids] * cfg.max_dist_neg)
+    tri = (torch.arange(parent.MAX_TRIS_PER_CUBE, device=dev)[None] < ntris[:, None]).reshape(-1)
+    tri = torch.cat([tri, tri.new_zeros((-tri.shape[0]) % 512)]).to(torch.int32).reshape(-1, 512)
+    sel = parent._compact_from_loc(tri, parent.pack_left_rows(tri))
+    equal = torch.equal(sel, torch.nonzero(tri.reshape(-1)).squeeze(1))
+    rep["parent_compaction"] = {
+        "rows": int(tri.shape[0]), "triangles": int(sel.shape[0]), "nonzero_equal": equal,
+        "pack_left_ms": timer.ms(lambda: parent.pack_left_rows(tri), spin=True),
+        "pack_left_compact_from_loc_ms": timer.ms(
+            lambda: parent._compact_from_loc(tri, parent.pack_left_rows(tri)), spin=True),
+        "nonzero_ms": timer.ms(lambda: torch.nonzero(tri.reshape(-1)), spin=True)}
+    log(f"parent triangle compaction: {rep['parent_compaction']}")
+    if not equal:
+        raise AssertionError("the parent's compaction differs from torch.nonzero")
+    return rep
 
 
 def main() -> int:
@@ -174,19 +348,27 @@ def main() -> int:
     log(f"card: {smi}")
     csrc = ROOT / "cpu_tsdf_tpu_torch" / "csrc"
     ray_src = (csrc / "raycast.cu").read_text()
-    fus_src = (csrc / "fusion.cu").read_text()
-    sources = {"raycast": ray_src, "raycast_no_tail": tail_cut(ray_src), "fusion": fus_src}
+    sources = {"raycast": ray_src, "raycast_no_tail": tail_cut(ray_src),
+               "fusion": (csrc / "fusion.cu").read_text(), **mc_sources(csrc)}
+    parent = None
     if args.parent:
         pc = args.parent / "cpu_tsdf_tpu_torch" / "csrc"
-        sources["parent_raycast"] = (pc / "raycast.cu").read_text()
-        sources["parent_fusion"] = (pc / "fusion.cu").read_text()
+        for name in ("raycast", "fusion", "mc_corner_halo", "pack_left"):
+            sources[f"parent_{name}"] = (pc / f"{name}.cu").read_text()
+        parent = load_parent(args.parent)
     built = build_all(sources)
     report = {"card": smi, "sass": {}, "raycast_ms": {}}
-    threads = {"raycast_kernel": 128, "fuse_kernel": 128}
+    threads = {"raycast_kernel": 128, "fuse_kernel": 128, "corner_halo_kernel": 128,
+               "emit_kernel": 128, "pack_left_kernel": 256}
     for name, (lib, text) in built.items():
         t = dict(threads)
         if name == "parent_fusion":
             t["fuse_kernel"] = 512
+        if name == "parent_mc_corner_halo":
+            t["corner_halo_kernel"] = 512
+        m = re.fullmatch(r"mc_(corner_halo|emit)_(\d+)", name)
+        if m:
+            t[m.group(1) + "_kernel"] = int(m.group(2))
         report["sass"][name] = kernel_table(name, lib, text, t)
 
     # ---- the scene: chip_smoke's main path ----
@@ -261,6 +443,7 @@ def main() -> int:
     report["raycast_bound_ms"] = max(nbytes / cs.HBM_BYTES_PER_S, nops / cs.FP32_OPS_PER_S) * 1e3
     report["raycast_work"] = {"bytes": nbytes, "operations": nops,
                               "found": int(plain[1].sum()), "valid": int(plain[3].sum())}
+    report["mc"] = mc_probe(torch, vol, timer, built, parent)
 
     text = json.dumps(report)
     (PROBE_DIR / "kernel_probe.json").write_text(text)
