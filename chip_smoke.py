@@ -41,16 +41,35 @@ Phases (any failure raises and exits non-zero before the last line):
      work; one render_depth_diff forward and backward at full width through
      both routes (gradients finite and nonzero, equal within 1e-5 relative,
      the pose-z derivative of the mean depth of the well-conditioned rays
-     within 25 % of a central difference with the crossing brackets held).
+     within 25 % of a central difference with the crossing brackets held);
+  7. the CLI path at full width: a directory of 20 colored, noisy 640x480
+     binary PCDs with pose .txt files (an orbit around a radius-0.4 sphere
+     that lies inside the volume in frame-0 coordinates) goes through
+     cli.integrate_main --sparse --color --save-tsdf --metrics-json
+     --visualize-every 8 at the reference-default 512^3 volume, with every
+     kernel's launch count zeroed just before and read just after (fusion
+     one a frame, the ray march one a rendered view, corner halo and
+     emission one an extraction); the volume must not overflow, the mesh
+     must lie on the sphere and the views must be written; tsdf2mesh_main
+     on the volume.npz must give the same triangles, vertices bit-equal; a
+     dense run of 3 frames (no --save-tsdf: the 512^3 dense npz is GBs)
+     must mesh through the MC kernels, on the sphere; get_intrinsics_main
+     on frame 0 must recover fx within 0.5. The per-frame means of the
+     PCD read, organize_cloud and integrate_bricks, the npz write and the
+     tsdf2mesh wall time go to a {"cli": ...} line on stdout.
 
-Output: progress on stderr; on stdout a line of kernel records
-{"kernels": [...]}, the nvidia-smi line, and last
+Output: progress on stderr; on stdout the CLI path's numbers
+{"cli": {...}}, a line of kernel records {"kernels": [...]}, the
+nvidia-smi line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -401,6 +420,179 @@ def render_phase(torch, cfg, vol, poses, poses_h, timer):
                   nbytes, nops)
 
 
+CLI_FRAMES = 20          # phase 7's sparse run; the ray march renders every 8th
+CLI_DENSE_FRAMES = 3
+CLI_RADIUS = 0.4
+
+
+def write_pcd_sequence(cfg, dirname, n_frames, radius, seed=11):
+    """Phase 7's input: n_frames colored, noisy (1.5 mm, 5 % dropouts)
+    organized binary PCDs of a sphere at the world origin, seen from an
+    orbit 1 m away, each with its camera-in-world pose as a .txt file."""
+    from cpu_tsdf_tpu_torch.io import pcd
+    from cpu_tsdf_tpu_torch.synthetic import orbit_pose, sphere_depth_world
+
+    rng = np.random.default_rng(seed)
+    W, H = cfg.image_width, cfg.image_height
+    uu, vv = np.meshgrid(np.arange(W), np.arange(H))
+    rgb = pcd.pack_rgb(np.stack([uu % 256, vv % 256, (uu + vv) % 256], -1)
+                       .reshape(-1, 3).astype(np.float32))
+    os.makedirs(dirname)
+    for i in range(n_frames):
+        pose = orbit_pose(2.0 * np.pi * i / n_frames)
+        z = sphere_depth_world(cfg, pose, radius=radius)
+        z = z + rng.normal(0.0, 0.0015, z.shape)
+        z = np.where(rng.uniform(size=z.shape) < 0.05, np.nan, z)
+        pts = np.stack([(uu - cfg.principal_point_x) / cfg.focal_length_x * z,
+                        (vv - cfg.principal_point_y) / cfg.focal_length_y * z, z], -1)
+        pts = pts.reshape(-1, 3).astype(np.float32)
+        fields = {"x": pts[:, 0], "y": pts[:, 1], "z": pts[:, 2], "rgb": rgb}
+        pcd.save_pcd(os.path.join(dirname, f"frame_{i:04d}.pcd"),
+                     pcd.PointCloud(fields, W, H), "binary")
+        with open(os.path.join(dirname, f"frame_{i:04d}.txt"), "w") as f:
+            for row in pose[:3]:
+                f.write(" ".join(f"{v:.9g}" for v in row) + "\n")
+
+
+def sphere_error(ply_path, center, radius):
+    """Median |distance to center - radius| of a PLY's vertices, and its
+    triangle count."""
+    from cpu_tsdf_tpu_torch.io.ply import load_ply
+
+    verts, faces, _ = load_ply(ply_path)
+    return float(np.median(np.abs(np.linalg.norm(verts - center, axis=1) - radius))), len(faces)
+
+
+def cli_phase(torch, tmp):
+    """Phase 7 (see the module docstring); returns the {"cli": ...} numbers."""
+    import logging
+
+    from cpu_tsdf_tpu_torch import cli
+    from cpu_tsdf_tpu_torch.config import TSDFConfig
+    from cpu_tsdf_tpu_torch.io import poses as pose_io
+    from cpu_tsdf_tpu_torch.io.ply import load_ply
+    from cpu_tsdf_tpu_torch.log import get_logger
+    from cpu_tsdf_tpu_torch.ops import fusion_kernel as fk
+    from cpu_tsdf_tpu_torch.ops import marching_cubes as mc
+    from cpu_tsdf_tpu_torch.ops import raycast_kernel as rk
+
+    def zero():
+        torch.cuda.synchronize()
+        fk.launches["fusion"] = rk.launches["raycast"] = 0
+        mc.launches.update(corner_halo=0, emit=0)
+
+    def counts():
+        return {"fusion": fk.launches["fusion"], "raycast": rk.launches["raycast"],
+                **mc.launches}
+
+    def mean_ms(key, rows):
+        return statistics.fmean(r[key] for r in rows) * 1e3
+
+    # the CLI logs its progress to stdout: send it to stderr here
+    for h in get_logger().handlers:
+        if isinstance(h, logging.StreamHandler):
+            h.setStream(sys.stderr)
+    cfg = TSDFConfig()                      # 640x480 at f=525, centre (320, 240)
+    seq = os.path.join(tmp, "seq")
+    t0 = time.perf_counter()
+    write_pcd_sequence(cfg, seq, CLI_FRAMES, CLI_RADIUS)
+    log(f"CLI input: {CLI_FRAMES} binary PCDs of {cfg.image_width}x{cfg.image_height} "
+        f"points with pose files, written in {time.perf_counter() - t0:.2f} s")
+    pose0 = pose_io.load_pose(os.path.join(seq, "frame_0000.txt"))
+    center = np.linalg.inv(pose0)[:3, 3]        # the sphere in frame-0 coordinates
+    base = ["--in", seq, "--volume-size", "3", "--cell-size", "0.005859375",
+            "--fx", str(cfg.focal_length_x), "--fy", str(cfg.focal_length_y),
+            "--cx", str(cfg.principal_point_x), "--cy", str(cfg.principal_point_y)]
+
+    # the sparse run: every kernel
+    out = os.path.join(tmp, "sparse")
+    metrics_path = os.path.join(tmp, "sparse.json")
+    zero()
+    t0 = time.perf_counter()
+    rc = cli.integrate_main(base + ["--out", out, "--sparse", "--color", "--save-tsdf",
+                                    "--metrics-json", metrics_path, "--visualize-every", "8"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    want = {"fusion": CLI_FRAMES, "raycast": CLI_FRAMES // 8, "corner_halo": 1, "emit": 1}
+    log(f"integrate --sparse: rc {rc}, {wall:.3f} s wall; launches {got}")
+    if rc != 0 or got != want:
+        raise AssertionError(f"integrate --sparse: rc {rc}, launches {got}, want {want}")
+    npz = os.path.join(out, "volume.npz")
+    with np.load(npz) as z:
+        overflowed, n_active = bool(z["overflowed"]), int(z["n_active"])
+    err, n_tri = sphere_error(os.path.join(out, "mesh.ply"), center, CLI_RADIUS)
+    views = sorted(f for f in os.listdir(out) if f.startswith("viz_"))
+    log(f"integrate --sparse: {n_active} live bricks, overflowed {overflowed}; {n_tri} "
+        f"triangles, median |r - {CLI_RADIUS}| {err * 1e3:.4f} mm; views {views}")
+    if overflowed or err >= HALF_CELL_M or n_tri < 1000:
+        raise AssertionError("integrate --sparse: overflow, or the mesh is off the sphere")
+    if len(views) != 2 * (CLI_FRAMES // 8):
+        raise AssertionError(f"integrate --sparse wrote views {views}")
+    with open(metrics_path) as f:
+        m = json.load(f)
+    frames = m["frames"]
+    res = {"card": None, "frames": CLI_FRAMES, "wall_s": wall, "total_s": m["total_s"],
+           **{f"{k}_ms": mean_ms(f"{k}_s", frames) for k in ("read", "organize", "integrate")},
+           "frame_ms": mean_ms("seconds", frames),
+           "frame_ms_after_first": mean_ms("seconds", frames[1:]),
+           "extract_ms": m["extract_s"] * 1e3, "npz_write_s": m["save_tsdf_s"],
+           "npz_bytes": os.path.getsize(npz), "live_bricks": n_active, "triangles": n_tri,
+           "median_radius_err_mm": err * 1e3}
+
+    # tsdf2mesh on the saved volume: the same triangles, bit for bit
+    zero()
+    t0 = time.perf_counter()
+    rc = cli.tsdf2mesh_main([npz, os.path.join(tmp, "remesh.ply")])
+    res["tsdf2mesh_s"] = time.perf_counter() - t0
+    v1, f1, _ = load_ply(os.path.join(out, "mesh.ply"))
+    v2, f2, _ = load_ply(os.path.join(tmp, "remesh.ply"))
+    log(f"tsdf2mesh: rc {rc}, {res['tsdf2mesh_s']:.3f} s wall; {len(f2)} triangles, "
+        f"vertices bit-equal {np.array_equal(v1, v2)}; launches {counts()}")
+    if rc != 0 or f1.shape != f2.shape or not np.array_equal(v1, v2):
+        raise AssertionError("tsdf2mesh does not reproduce the integrate mesh")
+    if min(mc.launches.values()) < 1:
+        raise AssertionError(f"tsdf2mesh did not run the MC kernels: {counts()}")
+
+    # a dense run: the MC kernels through from_dense
+    out = os.path.join(tmp, "dense")
+    metrics_path = os.path.join(tmp, "dense.json")
+    zero()
+    t0 = time.perf_counter()
+    rc = cli.integrate_main(base + ["--out", out, "--num-frames", str(CLI_DENSE_FRAMES),
+                                    "--metrics-json", metrics_path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    err, n_tri = sphere_error(os.path.join(out, "mesh.ply"), center, CLI_RADIUS)
+    with open(metrics_path) as f:
+        m = json.load(f)
+    res.update(dense_frames=CLI_DENSE_FRAMES, dense_wall_s=wall,
+               dense_integrate_ms=mean_ms("integrate_s", m["frames"]),
+               dense_extract_ms=m["extract_s"] * 1e3, dense_triangles=n_tri,
+               dense_median_radius_err_mm=err * 1e3)
+    log(f"integrate (dense, {CLI_DENSE_FRAMES} frames): rc {rc}, {wall:.3f} s wall; "
+        f"integrate {res['dense_integrate_ms']:.2f} ms a frame, extraction "
+        f"{res['dense_extract_ms']:.2f} ms; {n_tri} triangles, median |r - {CLI_RADIUS}| "
+        f"{err * 1e3:.4f} mm; launches {got}")
+    if rc != 0 or got["corner_halo"] < 1 or got["emit"] < 1:
+        raise AssertionError(f"dense integrate: rc {rc}, launches {got}")
+    if err >= HALF_CELL_M or n_tri < 1000:
+        raise AssertionError("dense integrate: the mesh is off the sphere")
+
+    # get-intrinsics on frame 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.get_intrinsics_main([os.path.join(seq, "frame_0000.pcd")])
+    fx = float(next(ln for ln in buf.getvalue().splitlines() if ln.startswith("fx:")).split()[1])
+    res["get_intrinsics_fx"] = fx
+    log(f"get-intrinsics: rc {rc}, fx {fx:.6f} (true {cfg.focal_length_x})")
+    if rc != 0 or abs(fx - cfg.focal_length_x) >= 0.5:
+        raise AssertionError("get-intrinsics did not recover fx")
+    log(f"CLI path: {json.dumps(res)}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -610,6 +802,12 @@ def main() -> int:
 
     kernels.append(render_phase(torch, cfg, vol, poses, poses_h, timer))
 
+    # ---- phase 7: the CLI path ---------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_numbers = cli_phase(torch, tmp)
+    cli_numbers["card"] = smi
+
+    print(json.dumps({"cli": cli_numbers}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

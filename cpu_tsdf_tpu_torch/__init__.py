@@ -3,7 +3,8 @@ Hopper cards.
 
 Projective depth fusion into a truncated signed distance field, dense or in
 a brick-sparse volume, raycast rendering (differentiable in depth), field
-queries, and marching-cubes extraction to PLY, in PyTorch, with the hot
+queries, marching-cubes extraction to PLY, npz and .vol checkpoints, and the
+reference's three CLI programs (``cli``), in PyTorch, with the hot
 paths in CUDA kernels written for sm_90a (``csrc/``). Entry points allocate
 on the CUDA device unless the caller passes ``device="cpu"``; functions run
 on the device of the tensors they get. On CPU tensors every kernel wrapper
@@ -26,5 +27,7 @@ from .bricks import (  # noqa: F401
     pack_render,
     to_dense,
 )
+from .io.checkpoint import load_any, load_checkpoint, save_checkpoint  # noqa: F401
+from .io.vol import load_vol, save_vol  # noqa: F401
 
 __version__ = "0.1.0"

@@ -11,10 +11,11 @@ SURVEY §7):
     [C, 4, B^3/4]; ``convert`` moves between the two); ``color``
     [C, B^3, nc];
   * each frame, hierarchical band activation (``activation``) lists the
-    bricks the frame may update, new ones get slots, a carve pass adds live
-    bricks in front of the depth, and the per-voxel update runs over that
-    list: in the CUDA kernel (``ops.fusion_kernel``) on the card, or in the
-    plain engine that is its contract.
+    bricks the frame may update (with ``num_random_splits > 1`` also the
+    bricks of jittered surface samples), new ones get slots, a carve pass
+    adds live bricks in front of the depth, and the per-voxel update runs
+    over that list: in the CUDA kernel (``ops.fusion_kernel``) on the
+    card, or in the plain engine that is its contract.
 
 Row C-1 is reserved and never allocated (the dump row). Capacity and budget
 overflow set ``overflowed``; nothing is dropped silently.
@@ -272,23 +273,90 @@ def _allocate_from_list(vol: BrickVolume, cand) -> None:
 # integration
 # ---------------------------------------------------------------------------
 
-def frame_update_list(vol: BrickVolume, depth, pose_inv, update_budget: int):
+def draw_split_noise(H: int, W: int, n_extra: int, generator: torch.Generator):
+    """The jitter's random draws, one pair per extra split: (scale [H, W],
+    uniform in [0, 0.03) m; nvec [H, W, 3], standard normal), on the
+    generator's device. The JAX package draws the same distributions from
+    ``jax.random``; the two generators differ."""
+    dev = generator.device
+    out = []
+    for _ in range(n_extra):
+        scale = torch.rand((H, W), generator=generator, device=dev) * 0.03
+        nvec = torch.randn((H, W, 3), generator=generator, device=dev)
+        out.append((scale, nvec))
+    return out
+
+
+def _jitter_split_bricks(cfg: TSDFConfig, nb, depth, pose, bids, update_budget: int,
+                         noise):
+    """Extra brick activation from jittered surface samples, the reference's
+    ``num_random_splits`` pre-split (cpu_tsdf/include/cpu_tsdf/impl/
+    tsdf_volume_octree.hpp:69-88): for every valid pixel and each draw of
+    ``noise`` (see :func:`draw_split_noise`), the surface point (camera
+    frame) moves by scale along the normalized nvec, and the brick holding
+    it is activated. The band list ``bids`` and the jittered bricks are
+    unioned in a mask over the brick grid and compacted again, in ascending
+    brick id. Returns (bids [update_budget], count, overflow)."""
+    from .activation import _compact
+    from .geometry import div_const, transform_points, voxel_index
+
+    B = cfg.xres // nb[0]
+    nbx, nby, nbz = nb
+    nbtot = nbx * nby * nbz
+    dev = depth.device
+    mask = torch.zeros((nbtot + 1,), dtype=torch.bool, device=dev)
+    mask[torch.where(bids >= 0, bids, nbtot).long()] = True
+    H, W = depth.shape
+    rx = div_const(torch.arange(W, dtype=torch.float32, device=dev)[None, :]
+                   - cfg.principal_point_x, cfg.focal_length_x)
+    ry = div_const(torch.arange(H, dtype=torch.float32, device=dev)[:, None]
+                   - cfg.principal_point_y, cfg.focal_length_y)
+    valid = ~torch.isnan(depth)
+    z = torch.where(valid, depth, 1.0)
+    for scale, nvec in noise:
+        n0, n1, n2 = nvec.unbind(-1)
+        norm = torch.clamp(torch.sqrt(n0 * n0 + n1 * n1 + n2 * n2), min=1e-9)
+        wx, wy, wz = transform_points(pose, rx * z + (n0 / norm) * scale,
+                                      ry * z + (n1 / norm) * scale,
+                                      z + (n2 / norm) * scale)
+        ix, iy, iz, inb = voxel_index(cfg, wx, wy, wz)
+        blin = ((ix // B) * nby + (iy // B)) * nbz + (iz // B)
+        mask[torch.where(valid & inb, blin, nbtot).reshape(-1).long()] = True
+    bids, n_band = _compact(mask[:-1], torch.arange(nbtot, dtype=torch.int32, device=dev),
+                            update_budget)
+    return bids, n_band, n_band > update_budget
+
+
+def frame_update_list(vol: BrickVolume, depth, pose_inv, update_budget: int,
+                      pose=None, split_generator: Optional[torch.Generator] = None):
     """Activation and allocation for one frame: allocates the frame's new
     band bricks in place and returns the update list (bx, by, bz, slot_ok,
     slots) — band candidates then carve slots — plus the frame's overflow
-    flag (0-dim bool tensor)."""
+    flag (0-dim bool tensor).
+
+    With ``num_random_splits > 1`` the band list gains the jittered
+    pre-split bricks, which need ``pose`` (camera-to-volume) and draw their
+    noise from ``split_generator`` (None: a generator seeded 0 on the
+    volume's device, anew each frame, as the JAX package uses PRNGKey(0)
+    each frame)."""
     from .activation import (_compact_chunked, band_candidate_bricks,
                              carve_candidate_slots, depth_mips, mip_base_level)
 
     cfg, B, C = vol.config, vol.brick_size, vol.capacity
-    if cfg.num_random_splits > 1:
-        raise NotImplementedError(
-            "num_random_splits > 1 (jittered pre-split activation) is not "
-            "ported yet")
     nb = vol.bricks_per_axis
     mips = depth_mips(depth, mip_base_level(cfg, B))
     bids, _, overflow = band_candidate_bricks(cfg, B, nb, mips, pose_inv,
                                               update_budget)
+    if cfg.num_random_splits > 1:
+        if pose is None:
+            raise ValueError("num_random_splits > 1 needs the camera pose")
+        if split_generator is None:
+            split_generator = torch.Generator(device=vol.device).manual_seed(0)
+        noise = draw_split_noise(depth.shape[0], depth.shape[1],
+                                 cfg.num_random_splits - 1, split_generator)
+        bids, _, jitter_overflow = _jitter_split_bricks(cfg, nb, depth, pose, bids,
+                                                        update_budget, noise)
+        overflow = overflow | jitter_overflow
     # carve pass on the PRE-allocation live set: live bricks strictly in
     # front of every depth under their footprint (hpp:189-198)
     carve_budget = carve_budget_for(update_budget)
@@ -314,7 +382,8 @@ def frame_update_list(vol: BrickVolume, depth, pose_inv, update_budget: int):
 
 def integrate_bricks(vol: BrickVolume, depth, pose, rgb=None,
                      update_budget: int = 1 << 13,
-                     use_kernel: Optional[bool] = None) -> BrickVolume:
+                     use_kernel: Optional[bool] = None,
+                     split_generator: Optional[torch.Generator] = None) -> BrickVolume:
     """Fuse one depth frame into the brick volume, IN PLACE; returns `vol`.
 
     depth [H, W] (NaN = missing), pose [4, 4] camera-to-volume, rgb
@@ -322,14 +391,16 @@ def integrate_bricks(vol: BrickVolume, depth, pose, rgb=None,
     device. update_budget bounds the band bricks updated per frame;
     exceeding it (or the carve budget, or the capacity) sets `overflowed`.
     use_kernel: None = the CUDA kernel on the card and the plain engine on
-    the CPU; False = the plain engine anywhere."""
+    the CPU; False = the plain engine anywhere. split_generator: the
+    jitter's random source when num_random_splits > 1 (see
+    :func:`frame_update_list`)."""
     dev = vol.device
     kernel = resolve_use_kernel(use_kernel, dev)
     depth = torch.as_tensor(depth, dtype=torch.float32, device=dev)
     pose = torch.as_tensor(pose, dtype=torch.float32, device=dev)
     pose_inv = rigid_inverse(pose)
     bx, by, bz, slot_ok, slots, overflow = frame_update_list(
-        vol, depth, pose_inv, update_budget)
+        vol, depth, pose_inv, update_budget, pose, split_generator)
     fuse_brick_batch(vol.config, vol.brick_size, bx, by, bz, slot_ok, slots,
                      vol.sdf, vol.weight, vol.M, vol.nsample, vol.color,
                      depth, pose_inv, rgb, kernel)
@@ -339,14 +410,16 @@ def integrate_bricks(vol: BrickVolume, depth, pose, rgb=None,
 
 def integrate_bricks_sequence(vol: BrickVolume, depths, poses, rgbs=None,
                               update_budget: int = 1 << 13,
-                              use_kernel: Optional[bool] = None) -> BrickVolume:
+                              use_kernel: Optional[bool] = None,
+                              split_generator: Optional[torch.Generator] = None
+                              ) -> BrickVolume:
     """Fuse a sequence of frames ([N, H, W] depths, [N, 4, 4] poses,
     optional [N, H, W, 3] rgbs) in order, IN PLACE; equal to calling
-    :func:`integrate_bricks` per frame."""
+    :func:`integrate_bricks` per frame with the same split_generator."""
     for i in range(len(depths)):
         integrate_bricks(vol, depths[i], poses[i],
                          None if rgbs is None else rgbs[i], update_budget,
-                         use_kernel)
+                         use_kernel, split_generator)
     return vol
 
 

@@ -7,6 +7,7 @@ the Pallas kernel in interpret mode. The CUDA kernel against this plain
 engine is tests/test_torch_kernels.py, on the card.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -242,8 +243,81 @@ def test_entry_points_refuse_what_is_not_ported(small_cfg):
     tv = tb.make_brick_volume(cfg, 8, 256, device="cpu")
     with pytest.raises(ValueError):
         tb.integrate_bricks(tv, depth, POSES[0], use_kernel=True)
-    split = tb.make_brick_volume(cfg.with_updates(num_random_splits=3), 8, 256,
-                                 device="cpu")
-    with pytest.raises(NotImplementedError):
-        tb.integrate_bricks(split, depth, POSES[0])
 
+
+def _jax_draws(H, W, n_extra, generator):
+    """The JAX package's per-frame jitter draws (PRNGKey(0), split as its
+    _jitter_split_bricks splits it), in the port's draw_split_noise form."""
+    key = jax.random.PRNGKey(0)
+    out = []
+    for _ in range(n_extra):
+        key, k1, k2 = jax.random.split(key, 3)
+        out.append((torch.as_tensor(np.array(jax.random.uniform(k1, (H, W)) * 0.03)),
+                    torch.as_tensor(np.array(jax.random.normal(k2, (H, W, 3))))))
+    return out
+
+
+@pytest.mark.parametrize("mode", [None, "RGB"])
+def test_random_splits_match_jax(small_cfg, monkeypatch, mode):
+    """integrate_bricks with num_random_splits=3, the jittered pre-split
+    fed the JAX package's own random draws, gives the JAX volume (fusion
+    tolerances)."""
+    jcfg, cfg, depth, rgb = _scene(small_cfg.with_updates(num_random_splits=3), mode)
+    monkeypatch.setattr(tb, "draw_split_noise", _jax_draws)
+    jv = jb.make_brick_volume(jcfg, 8, 2048)
+    tv = tb.make_brick_volume(cfg, 8, 2048, device="cpu")
+    for p in POSES:
+        p = p.astype(np.float32)
+        jv = jb.integrate_bricks(jv, jnp.asarray(depth), jnp.asarray(p),
+                                 None if rgb is None else jnp.asarray(rgb), 1024)
+        tb.integrate_bricks(tv, depth, p, rgb, 1024)
+    assert int(jv.n_active) > 50 and not bool(jv.overflowed)
+    assert_volumes_match(tv, jv, mode)
+
+
+@pytest.mark.parametrize("budget", [1024, 16])
+def test_jitter_split_bricks_match_jax(small_cfg, budget):
+    """The jittered bricks alone (an empty band list) on the same draws:
+    the same list, count and overflow flag as the JAX package's; unioned
+    with a band list, the same ascending list."""
+    jcfg, cfg, depth, _ = _scene(small_cfg.with_updates(num_random_splits=3), None)
+    nb = (8, 8, 8)
+    H, W = depth.shape
+    pose = POSES[1].astype(np.float32)
+    noise = _jax_draws(H, W, 2, None)
+    band = np.full(1024, -1, np.int32)
+    band[:5] = (400, 3, 77, 12, 5)
+    for bids in (np.full(1024, -1, np.int32), band):
+        j = jb._jitter_split_bricks(jcfg, nb, jnp.asarray(depth), jnp.asarray(pose),
+                                    jnp.asarray(bids), budget, jax.random.PRNGKey(0))
+        t = tb._jitter_split_bricks(cfg, nb, torch.as_tensor(depth), torch.as_tensor(pose),
+                                    torch.as_tensor(bids), budget, noise)
+        assert int(t[1]) == int(j[1]) > 20 and bool(t[2]) == bool(j[2]) == (budget == 16)
+        np.testing.assert_array_equal(t[0].numpy(), np.asarray(j[0]))
+
+
+def test_random_splits_own_generator(small_cfg):
+    """The port's own draws: a generator seeded 0 on the volume's device by
+    default, the same jitter each time; another generator, other jitter.
+    frame_update_list needs the pose for the jitter."""
+    _, cfg, depth, _ = _scene(small_cfg.with_updates(num_random_splits=3), None)
+    depth_t = torch.as_tensor(depth)
+    pose = torch.as_tensor(POSES[1], dtype=torch.float32)
+    empty = torch.full((1024,), -1, dtype=torch.int32)
+
+    def jittered(gen):
+        noise = tb.draw_split_noise(*depth.shape, 2, gen)
+        assert noise[0][0].shape == depth.shape and noise[0][1].shape == depth.shape + (3,)
+        assert float(noise[0][0].min()) >= 0.0 and float(noise[0][0].max()) < 0.03
+        return tb._jitter_split_bricks(cfg, (8, 8, 8), depth_t, pose, empty, 1024, noise)[0]
+
+    a, b = (jittered(torch.Generator().manual_seed(0)) for _ in range(2))
+    c = jittered(torch.Generator().manual_seed(123))
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    vols = [tb.make_brick_volume(cfg, 8, 2048, device="cpu") for _ in range(2)]
+    for v in vols:
+        tb.integrate_bricks(v, depth, pose, None, 1024)
+    assert torch.equal(vols[0].brick_map, vols[1].brick_map)
+    assert torch.equal(vols[0].weight, vols[1].weight)
+    with pytest.raises(ValueError):
+        tb.frame_update_list(vols[0], depth_t, torch.eye(4), 1024)

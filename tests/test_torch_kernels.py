@@ -12,6 +12,7 @@ tests/test_torch_*.py files.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -386,3 +387,69 @@ def test_depth_gradients_kernel_route_match_plain(cuda_device):
     for gk, gp in ((gk_sdf, gp_sdf), (gk_pose, gp_pose)):
         assert torch.isfinite(gk).all()
         assert float((gk - gp).abs().max()) <= 1e-5 * float(gp.abs().max())
+
+
+def _write_cli_sequence(dirname, n=4):
+    """PCD + pose .txt pairs of CFG's camera orbiting a radius-0.3 sphere
+    0.8 m away, colored."""
+    from cpu_tsdf_tpu_torch.io import pcd
+
+    W, H = CFG.image_width, CFG.image_height
+    fx, cx, cy = CFG.focal_length_x, CFG.principal_point_x, CFG.principal_point_y
+    rng = np.random.default_rng(2)
+    uu, vv = np.meshgrid(np.arange(W), np.arange(H))
+    os.makedirs(dirname)
+    for i in range(n):
+        pose = orbit_pose(0.4 * i, orbit_radius=0.8)
+        z = sphere_depth_world(CFG, pose, radius=0.3)
+        pts = np.stack([(uu - cx) / fx * z, (vv - cy) / fx * z, z], -1).reshape(-1, 3)
+        rgb = rng.integers(0, 256, (W * H, 3)).astype(np.float32)
+        fields = {"x": pts[:, 0].astype(np.float32), "y": pts[:, 1].astype(np.float32),
+                  "z": pts[:, 2].astype(np.float32), "rgb": pcd.pack_rgb(rgb)}
+        pcd.save_pcd(os.path.join(dirname, f"cloud_{i:04d}.pcd"),
+                     pcd.PointCloud(fields, W, H), "binary")
+        with open(os.path.join(dirname, f"pose_{i:04d}.txt"), "w") as f:
+            for row in pose[:3]:
+                f.write(" ".join(f"{v:.9g}" for v in row) + "\n")
+
+
+def test_cli_on_card_matches_cpu(cuda_device, tmp_path, monkeypatch):
+    """integrate (--sparse --color --visualize-every 2) with TSDF_DEVICE=cuda
+    and =cpu: the volumes to the fusion tolerances (weight, nsample, color
+    exact; sdf and M within 1e-5), the same triangles; the card run launched
+    all four kernels."""
+    from cpu_tsdf_tpu_torch.cli import integrate_main
+    from cpu_tsdf_tpu_torch.io.ply import load_ply
+
+    seq = str(tmp_path / "seq")
+    _write_cli_sequence(seq)
+    args = ["--in", seq, "--volume-size", "1.6", "--cell-size", "0.0125",
+            "--width", str(CFG.image_width), "--height", str(CFG.image_height),
+            "--fx", "140", "--fy", "140", "--cx", "80", "--cy", "60",
+            "--trunc-dist-pos", "0.04", "--trunc-dist-neg", "0.04",
+            "--min-sensor-dist", "0.1", "--max-cell-size", "0.2", "--sparse",
+            "--brick-capacity", "4096", "--color", "--save-tsdf", "--visualize-every", "2"]
+    rk.launches["raycast"] = 0
+    fk.launches["fusion"] = 0
+    mc.launches.update(corner_halo=0, emit=0)
+    for dev in ("cuda", "cpu"):
+        monkeypatch.setenv("TSDF_DEVICE", dev)
+        assert integrate_main(args + ["--out", str(tmp_path / dev)]) == 0
+        if dev == "cuda":
+            counts = {"fusion": fk.launches["fusion"], "raycast": rk.launches["raycast"],
+                      **mc.launches}
+    assert counts == {"fusion": 4, "raycast": 2, "corner_halo": 1, "emit": 1}, counts
+    with np.load(tmp_path / "cuda" / "volume.npz") as a, \
+            np.load(tmp_path / "cpu" / "volume.npz") as b:
+        assert a.files == b.files
+        for k in a.files:
+            if k in ("sdf", "M"):
+                np.testing.assert_allclose(a[k], b[k], atol=1e-5, err_msg=k)
+            else:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    (va, fa, ca), (vb, fb, cb) = (load_ply(str(tmp_path / d / "mesh.ply"))
+                                  for d in ("cuda", "cpu"))
+    assert len(fa) == len(fb) > 1000
+    np.testing.assert_allclose(va, vb, atol=1e-5)
+    np.testing.assert_array_equal(ca, cb)
+    assert os.path.exists(tmp_path / "cuda" / "viz_0003_normals.png")

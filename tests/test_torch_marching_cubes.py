@@ -1,5 +1,5 @@
-"""Port parity: brick marching cubes and its two kernels' plain versions
-against the JAX package.
+"""Port parity: brick and dense marching cubes and the two kernels' plain
+versions against the JAX package.
 
 pack-left, the corner stacks and the corner halo's compacted outputs are
 held EXACTLY against the Pallas kernels in interpret mode; the emission's
@@ -7,7 +7,10 @@ plain version against the JAX route through the Pallas pack-left kernel
 (vertices within 1e-6, the same triangles in the same order); the extracted
 mesh (from the same volume state, carried across with ``convert``) against
 the JAX XLA route: the same triangles in the same order, vertices within
-1e-6. The CUDA kernels against these plain versions are
+1e-6. The dense route against the JAX dense route: the same triangles in
+the same order, vertices within 1e-5; and against from_dense + the brick
+route, the way a dense volume is meshed on the card: the same triangles.
+The CUDA kernels against these plain versions are
 tests/test_torch_kernels.py, on the card; the case tables the kernels carry
 are held against mc_tables here.
 """
@@ -25,9 +28,9 @@ import cpu_tsdf_tpu as J
 from cpu_tsdf_tpu import bricks as jb
 from cpu_tsdf_tpu.ops import marching_cubes as jmc
 from cpu_tsdf_tpu.synthetic import sphere_depth
-from cpu_tsdf_tpu_torch import make_volume
+from cpu_tsdf_tpu_torch import from_dense, make_volume
 from cpu_tsdf_tpu_torch.config import TSDFConfig
-from cpu_tsdf_tpu_torch.convert import brick_volume_from_arrays
+from cpu_tsdf_tpu_torch.convert import brick_volume_from_arrays, tsdf_volume_from_arrays
 from cpu_tsdf_tpu_torch.ops import marching_cubes as tmc
 from cpu_tsdf_tpu_torch.ops.mc_tables import TRI_COUNT, TRI_TABLE
 
@@ -207,8 +210,69 @@ def test_extract_mesh_matches_jax(volumes, kernel_route, coloring):
         assert (c[:, 2] > 200).all()  # w <= 2 -> mostly blue
 
 
-def test_dense_extract_mesh_not_ported(small_cfg):
-    cfg = TSDFConfig.from_json(small_cfg.to_json())
-    with pytest.raises(NotImplementedError):
-        tmc.extract_mesh(make_volume(cfg, device="cpu"))
+@pytest.fixture(scope="module")
+def dense_volumes():
+    """A two-frame colored (LAB) JAX dense volume and its port copy (CPU)."""
+    jcfg = J.TSDFConfig(
+        xres=64, yres=64, zres=64, xsize=1.6, ysize=1.6, zsize=1.6,
+        max_dist_pos=0.06, max_dist_neg=0.06, min_sensor_dist=0.1,
+        max_sensor_dist=3.0, image_width=40, image_height=30,
+        focal_length_x=35.0, focal_length_y=35.0, principal_point_x=20.0,
+        principal_point_y=15.0, max_cell_size_x=0.4, max_cell_size_y=0.4,
+        max_cell_size_z=0.4, integrate_color=True, color_mode="LAB")
+    depth = sphere_depth(jcfg, center=(-0.013, -0.021, 0.9), radius=0.3)
+    rgb = np.random.default_rng(5).integers(0, 256, depth.shape + (3,)).astype(np.float32)
+    jv = J.make_volume(jcfg)
+    for p in (tilted_pose(), tilted_pose(tx=0.063, ty=0.041, tz=-0.88)):
+        jv = J.integrate(jv, jnp.asarray(depth), jnp.asarray(p, jnp.float32), jnp.asarray(rgb))
+    arrays = {k: np.asarray(getattr(jv, k)) for k in
+              ("sdf", "weight", "M", "nsample", "color", "global_transform")}
+    tv = tsdf_volume_from_arrays(TSDFConfig.from_json(jcfg.to_json()), arrays, device="cpu")
+    return jv, tv
 
+
+@pytest.mark.parametrize("min_weight", [0.0, MIN_W])
+@pytest.mark.parametrize("coloring", ["none", "rgb", "confidence"])
+def test_dense_extract_mesh_matches_jax(dense_volumes, coloring, min_weight):
+    """The dense route on the CPU gives the JAX dense route's triangles in
+    its (cube-major) order."""
+    jv, tv = dense_volumes
+    rgb, conf = coloring == "rgb", coloring == "confidence"
+    np.testing.assert_array_equal(tmc.active_cube_mask(tv, min_weight).numpy(),
+                                  np.asarray(jmc.active_cube_mask(jv, min_weight)))
+    assert tmc.count_active_cubes(tv, min_weight) == jmc.count_active_cubes(jv, min_weight)
+    jverts, jfaces, jcols = jmc.extract_mesh(jv, min_weight, rgb, conf)
+    tverts, tfaces, tcols = tmc.extract_mesh(tv, min_weight, rgb, conf)
+    assert len(jfaces) > 100 and tverts.shape == jverts.shape
+    np.testing.assert_array_equal(tfaces, jfaces)
+    np.testing.assert_allclose(tverts, jverts, atol=1e-5)
+    assert (tcols is None) == (coloring == "none")
+    if tcols is not None:
+        np.testing.assert_allclose(tcols, jcols, atol=1e-4)
+    assert tmc.marching_cubes(tv, min_weight).num_triangles == len(tfaces)
+
+
+def _triangle_rows(verts, cols):
+    """A soup's triangles as sorted rows (9 coordinates, then 9 colors)."""
+    rows = np.concatenate([verts.reshape(-1, 9), cols.reshape(-1, 9)], 1)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def test_dense_routes_give_the_same_triangles(dense_volumes):
+    """from_dense + the brick route (the route a dense volume takes on the
+    card, the kernels' plain versions standing in) against the dense route:
+    the same triangle set, bit for bit; use_kernel=True on the CPU raises."""
+    _, tv = dense_volumes
+    dverts, _, dcols = tmc.extract_mesh(tv, MIN_W, color_by_rgb=True)
+    soup = tmc._extract(from_dense(tv, 8), MIN_W, True, False, True)
+    assert soup.num_triangles == len(dverts) // 3
+    np.testing.assert_array_equal(_triangle_rows(soup.vertices.numpy(), soup.colors.numpy()),
+                                  _triangle_rows(dverts, dcols))
+    with pytest.raises(ValueError):
+        tmc.extract_mesh(tv, MIN_W, use_kernel=True)
+
+
+def test_dense_extract_of_empty_volume(small_cfg):
+    cfg = TSDFConfig.from_json(small_cfg.to_json())
+    v, f, c = tmc.extract_mesh(make_volume(cfg, device="cpu"), color_by_confidence=True)
+    assert v.shape == (0, 3) and f.shape == (0, 3) and c.shape == (0, 3)
