@@ -56,10 +56,32 @@ Phases (any failure raises and exits non-zero before the last line):
      must mesh through the MC kernels, on the sphere; get_intrinsics_main
      on frame 0 must recover fx within 0.5. The per-frame means of the
      PCD read, organize_cloud and integrate_bricks, the npz write and the
-     tsdf2mesh wall time go to a {"cli": ...} line on stdout.
+     tsdf2mesh wall time go to a {"cli": ...} line on stdout;
+  8. pose refinement at full width: refine.refine_pose (10 iterations,
+     640x480 at downsample 2) on the phase-2 volume, from the pose of orbit
+     view 24 moved by the translation of tests/test_refine.py's twist,
+     against the depth of the noiseless sphere from the true pose. The loss
+     must fall at least 2x and the translation error must fall; the median
+     refine_pose_step time gives steps/s. A {"refine": ...} line;
+  9. the sharded paths on 2 ranks that share the card (torch.distributed
+     over gloo: NCCL refuses two ranks on one GPU): each rank fuses its X
+     slab of the first 8 orbit frames at 512^3 with color
+     (parallel.bricks.integrate_bricks_sharded, 2^14 rows a rank, the
+     fusion kernel counted per rank), merge_sharded must equal the
+     single-device integrate_bricks brick by brick (coords, weight,
+     nsample, color exact, sdf and M within 1e-5) and mesh to the same
+     triangles through the MC kernels (counted per rank); render_view_sharded,
+     render_view_pallas_sharded and the colored render_view_volume_sharded
+     of four poses must equal the single-device kernel render in depth,
+     normals and rgb (the march counted per rank and render: once, or, for
+     the volume-sharded relay, once a slab the rays cross); a 3-frame
+     dense integrate_sharded at 512^3 must equal the single-device dense
+     integrate on each slab. Per-frame and per-render times (host clock,
+     2 ranks on 1 card) go to a {"parallel": ...} line.
 
 Output: progress on stderr; on stdout the CLI path's numbers
-{"cli": {...}}, a line of kernel records {"kernels": [...]}, the
+{"cli": {...}}, {"refine": {...}}, {"parallel": {...}}, a line of kernel
+records {"kernels": [...]} (each with its launches on every path), the
 nvidia-smi line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -518,6 +540,7 @@ def cli_phase(torch, tmp):
     log(f"integrate --sparse: rc {rc}, {wall:.3f} s wall; launches {got}")
     if rc != 0 or got != want:
         raise AssertionError(f"integrate --sparse: rc {rc}, launches {got}, want {want}")
+    sparse_launches = got
     npz = os.path.join(out, "volume.npz")
     with np.load(npz) as z:
         overflowed, n_active = bool(z["overflowed"]), int(z["n_active"])
@@ -538,7 +561,7 @@ def cli_phase(torch, tmp):
            "frame_ms_after_first": mean_ms("seconds", frames[1:]),
            "extract_ms": m["extract_s"] * 1e3, "npz_write_s": m["save_tsdf_s"],
            "npz_bytes": os.path.getsize(npz), "live_bricks": n_active, "triangles": n_tri,
-           "median_radius_err_mm": err * 1e3}
+           "median_radius_err_mm": err * 1e3, "launches": sparse_launches}
 
     # tsdf2mesh on the saved volume: the same triangles, bit for bit
     zero()
@@ -590,6 +613,292 @@ def cli_phase(torch, tmp):
     if rc != 0 or abs(fx - cfg.focal_length_x) >= 0.5:
         raise AssertionError("get-intrinsics did not recover fx")
     log(f"CLI path: {json.dumps(res)}")
+    return res
+
+
+# the translation of tests/test_refine.py's twist (~3.4 cm), the refine
+# phase's perturbation of the true pose
+REFINE_SHIFT = (0.024, -0.018, 0.015)
+REFINE_ITERS = 10
+
+
+def refine_phase(torch, cfg, vol, pose_h):
+    """Phase 8 (see the module docstring); returns the {"refine": ...}
+    numbers."""
+    from cpu_tsdf_tpu_torch import refine
+    from cpu_tsdf_tpu_torch.refine import _compose, exp_se3, refine_pose, refine_pose_step
+    from cpu_tsdf_tpu_torch.synthetic import sphere_depth_world
+
+    dev = vol.device
+    depth = torch.as_tensor(sphere_depth_world(cfg, pose_h, radius=0.5), device=dev)
+    pose = torch.as_tensor(pose_h, device=dev)
+    bad = _compose(exp_se3(torch.tensor((*REFINE_SHIFT, 0.0, 0.0, 0.0), device=dev)), pose)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refined, losses = refine_pose(vol, bad, depth, iters=REFINE_ITERS, downsample_by=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    def host_ms(fn, reps=5):
+        times = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times[1:]) * 1e3
+
+    step_ms = host_ms(lambda: refine_pose_step(vol, bad, depth, 2))
+    J, r0, _ = refine._jacobian(vol, bad, depth, 2)
+    parts = {"residual_ms": host_ms(lambda: refine._alignment_residuals(vol, bad, depth, 2)),
+             "jacobian_ms": host_ms(lambda: refine._jacobian(vol, bad, depth, 2)),
+             "solve_ms": host_ms(lambda: refine._damped_step(J, r0, 1.0))}
+    busy, top = device_ms(torch, lambda: refine_pose_step(vol, bad, depth, 2))
+    err0 = float(torch.linalg.vector_norm(bad[:3, 3] - pose[:3, 3]))
+    err1 = float(torch.linalg.vector_norm(refined[:3, 3] - pose[:3, 3]))
+    rot = float((refined[:3, :3] - pose[:3, :3]).abs().max())
+    step_s = step_ms / 1e3
+    res = {"card": None, "points": (cfg.image_height // 2) * (cfg.image_width // 2),
+           "iters": REFINE_ITERS, "loss_before": losses[0], "loss_after": losses[-1],
+           "losses": losses, "translation_err_before_m": err0, "translation_err_after_m": err1,
+           "rotation_err_max": rot, "refine_pose_s": wall, "step_ms": step_s * 1e3,
+           "steps_per_s": 1.0 / step_s, **parts, "step_device_ms": busy,
+           "step_device_share": busy / (step_s * 1e3)}
+    log(f"refine: {res['points']} points ({cfg.image_width}x{cfg.image_height} at downsample "
+        f"2), {REFINE_ITERS} iterations in {wall:.3f} s; loss {losses[0]:.6g} -> {losses[-1]:.6g} "
+        f"({losses[0] / max(losses[-1], 1e-30):.2f}x); translation error {err0 * 1e3:.3f} -> "
+        f"{err1 * 1e3:.3f} mm; rotation max |dR| {rot:.3g}; refine_pose_step median "
+        f"{step_s * 1e3:.3f} ms = {1.0 / step_s:.2f} steps/s (host clock, synchronized): "
+        f"residual {parts['residual_ms']:.3f} ms, residual + Jacobian {parts['jacobian_ms']:.3f} "
+        f"ms, normal equations + solve {parts['solve_ms']:.3f} ms; device busy {busy:.3f} ms "
+        f"of a step (torch.profiler; largest {top})")
+    if not (losses[-1] * 2.0 <= losses[0] and err1 < err0):
+        raise AssertionError("refine did not halve the loss and lower the translation error")
+    return res
+
+
+PAR = {"ranks": 2, "frames": 8, "capacity": 1 << 14, "budget": 1 << 12, "dense_frames": 3,
+       "render_poses": (0, 2, 4, 6), "orbit": 48, "timeout_s": 600}
+
+
+def views_differ(torch, a, b) -> dict:
+    """Pixels whose depth, normals or rgb differ between two colored renders
+    (NaN equal to NaN)."""
+    out = {}
+    for name in ("depth", "normals", "rgb"):
+        x, y = getattr(a, name), getattr(b, name)
+        out[name] = int((~((x == y) | (torch.isnan(x) & torch.isnan(y)))).sum())
+    return out
+
+
+def bricks_differ(torch, a, b):
+    """Holds a merged sharded brick volume against a single-device one
+    brick by brick (their slot numbers differ): the same bricks, coords,
+    weight, nsample and color exact, sdf and M within 1e-5. Returns the
+    largest sdf/M difference and the brick count."""
+    ma, mb = a.brick_map.reshape(-1), b.brick_map.reshape(-1)
+    if not torch.equal(ma >= 0, mb >= 0):
+        raise AssertionError("merged volume: another brick set than one device's")
+    sel = ma >= 0
+    ra, rb = ma[sel].long(), mb[sel].long()
+    n = int(sel.sum())
+    if int((a.coords[:, 0] >= 0).sum()) != n or int(a.n_active) != int(b.n_active):
+        raise AssertionError("merged volume: live rows or n_active differ")
+    for name in ("coords", "weight", "nsample", "color"):
+        if not torch.equal(getattr(a, name)[ra], getattr(b, name)[rb]):
+            raise AssertionError(f"merged volume: {name} differs from one device's")
+    err = max(float((a.sdf[ra] - b.sdf[rb]).abs().max()), float((a.M[ra] - b.M[rb]).abs().max()))
+    if err > 1e-5 or bool(a.overflowed) or bool(b.overflowed):
+        raise AssertionError(f"merged volume: sdf/M differ by {err}, or a volume overflowed")
+    return err, n
+
+
+def parallel_rank(rank: int, port: int, out_dir: str, spec: dict) -> None:
+    """One rank of phase 9: the sharded paths against the single-device
+    ones on this rank's device; writes rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from cpu_tsdf_tpu_torch import (TSDFConfig, integrate, integrate_bricks,
+                                    make_brick_volume, make_volume, pack_render, render_view)
+    from cpu_tsdf_tpu_torch.ops import fusion_kernel as fk
+    from cpu_tsdf_tpu_torch.ops import marching_cubes as mc
+    from cpu_tsdf_tpu_torch.ops import raycast_kernel as rk
+    from cpu_tsdf_tpu_torch.parallel import (integrate_sharded, render_view_pallas_sharded,
+                                             render_view_sharded, shard_volume)
+    from cpu_tsdf_tpu_torch.parallel.bricks import (integrate_bricks_sharded,
+                                                    make_sharded_brick_volume, merge_sharded)
+    from cpu_tsdf_tpu_torch.parallel.distributed import initialize, make_mesh
+    from cpu_tsdf_tpu_torch.parallel.raycast import render_view_volume_sharded
+
+    dev = torch.device(spec["device"])
+    initialize(f"127.0.0.1:{port}", spec["ranks"], rank, device=dev)
+    mesh = make_mesh(dev)
+    cfg = TSDFConfig.from_json(spec["cfg"])
+    n = spec["frames"]
+    poses_h, depths_h, rgb_h = orbit(cfg, spec["orbit"])
+    poses = torch.as_tensor(poses_h[:n], device=dev)
+    depths = torch.as_tensor(depths_h[:n], device=dev)
+    rgb = torch.as_tensor(rgb_h, device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        dist.barrier()
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    res = {"rank": rank, "backend": dist.get_backend(),
+           "device": str(dev) if dev.type == "cpu" else
+           f"cuda:{torch.cuda.current_device()} {torch.cuda.get_device_name()}"}
+
+    # ---- 1. the slab-sharded brick integrate, merged, against one device ----
+    sb = make_sharded_brick_volume(cfg, mesh, 8, spec["capacity"], device=dev)
+    fk.launches["fusion"] = 0
+    frame_ms = [timed(lambda: integrate_bricks_sharded(sb, depths[i], poses[i], mesh,
+                                                       spec["budget"], rgb))[1]
+                for i in range(n)]
+    res["fusion_launches"] = fk.launches["fusion"]
+    merged, res["merge_ms"] = timed(lambda: merge_sharded(sb))
+    single = make_brick_volume(cfg, 8, sb.capacity, device=dev)
+    for i in range(n):
+        integrate_bricks(single, depths[i], poses[i], rgb, spec["budget"])
+    res["bricks_err"], res["bricks"] = bricks_differ(torch, merged, single)
+    res.update(frame_ms=frame_ms, local_bricks=int(sb.n_active),
+               local_capacity=sb.capacity_per_device)
+    per_call = int(dev.type == "cuda")     # CPU tensors take the plain versions, uncounted
+    if res["fusion_launches"] != n * per_call:
+        raise AssertionError(f"rank {rank}: fusion ran {res['fusion_launches']} times in {n} frames")
+
+    # the merged volume meshes like one device's (its slot gaps included)
+    mc.launches.update(corner_halo=0, emit=0)
+    (vm, fm, _), res["mesh_ms"] = timed(lambda: mc.extract_mesh(merged, min_weight=0.5))
+    res["mc_launches"] = dict(mc.launches)
+    vs, fs, _ = mc.extract_mesh(single, min_weight=0.5)
+    if fm.shape != fs.shape or not np.array_equal(np.sort(vm.reshape(-1)), np.sort(vs.reshape(-1))):
+        raise AssertionError(f"rank {rank}: the merged volume's mesh differs from one device's")
+    res["triangles"] = len(fm)
+    if min(res["mc_launches"].values()) != per_call:
+        raise AssertionError(f"rank {rank}: MC launches {res['mc_launches']}")
+
+    # ---- 2. the three sharded renders against the single-device kernel render
+    packed = pack_render(merged)
+    renders = {"ray_sharded": lambda p: render_view_sharded(packed, p, mesh, colored=True),
+               "tile_sharded": lambda p: render_view_pallas_sharded(merged, p, mesh,
+                                                                    colored=True, pack=packed),
+               "volume_sharded": lambda p: render_view_volume_sharded(sb, p, mesh,
+                                                                      colored=True)[0]}
+    res["render_ms"] = {k: [] for k in renders}
+    res["raycast_launches"] = {k: 0 for k in renders}
+    for i in spec["render_poses"]:
+        ref = render_view(packed, poses[i], colored=True)
+        for name, fn in renders.items():
+            rk.launches["raycast"] = 0
+            view, ms = timed(lambda: fn(poses[i]))
+            res["raycast_launches"][name] += rk.launches["raycast"]
+            res["render_ms"][name].append(ms)
+            diff = views_differ(torch, view, ref)
+            if any(diff.values()):
+                raise AssertionError(f"rank {rank}: {name} render of pose {i} differs from "
+                                     f"the single-device render: {diff}")
+        res["valid_pixels"] = int((~torch.isnan(ref.depth)).sum())
+    # one launch a render a rank; the volume-sharded relay one a ray segment
+    # a rank holds: between one and the slab count a render
+    for name, count in res["raycast_launches"].items():
+        lo = len(spec["render_poses"]) * per_call
+        hi = lo * (spec["ranks"] if name == "volume_sharded" else 1)
+        if not lo <= count <= hi:
+            raise AssertionError(f"rank {rank}: {name} launched the march {count} times")
+    del merged, single, packed, sb
+
+    # ---- 3. the dense slab-sharded integrate against one device ----
+    sv = shard_volume(make_volume(cfg, device=dev), mesh)
+    whole = make_volume(cfg, device=dev)
+    res["dense_frame_ms"] = []
+    for i in range(spec["dense_frames"]):
+        sv, ms = timed(lambda: integrate_sharded(sv, depths[i], poses[i], rgb))
+        res["dense_frame_ms"].append(ms)
+        whole = integrate(whole, depths[i], poses[i], rgb)
+    x0, nx = sv.x0, sv.local.sdf.shape[0]
+    for name in ("sdf", "weight", "M", "nsample", "color"):
+        if not torch.equal(getattr(sv.local, name), getattr(whole, name)[x0:x0 + nx]):
+            raise AssertionError(f"rank {rank}: dense slab {name} differs from one device's")
+    res["dense_observed"] = int((sv.local.weight > 0).sum())
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def parallel_phase(torch, cfg, spec=None):
+    """Phase 9 (see the module docstring): spawns the ranks, waits for them
+    (a rank that fails or outlives the deadline fails the phase); returns
+    the {"parallel": ...} numbers."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    spec = {**PAR, "device": "cuda", "cfg": cfg.to_json(), **(spec or {})}
+    if spec["device"] == "cuda":
+        torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(parallel_rank, args=(port, tmp, spec), nprocs=spec["ranks"],
+                                 join=False, start_method="spawn")
+        deadline = time.monotonic() + spec["timeout_s"]
+        try:
+            while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"parallel phase: ranks still running after "
+                                         f"{spec['timeout_s']} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(10)
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(spec["ranks"]):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    med = statistics.median
+    res = {"card": None, "ranks": spec["ranks"], "cards": torch.cuda.device_count()
+           if spec["device"] == "cuda" else 0,
+           "layout": f"{spec['ranks']} ranks on 1 card", "backend": ranks[0]["backend"],
+           "devices": [r["device"] for r in ranks], "frames": spec["frames"],
+           "wall_s": wall, "bricks": ranks[0]["bricks"],
+           "local_bricks": [r["local_bricks"] for r in ranks],
+           "bricks_max_sdf_m_err": max(r["bricks_err"] for r in ranks),
+           "frame_ms_median": med([med(r["frame_ms"]) for r in ranks]),
+           "frame_ms_per_rank": [r["frame_ms"] for r in ranks],
+           "merge_ms": [r["merge_ms"] for r in ranks],
+           "render_ms_median": {k: med([med(r["render_ms"][k]) for r in ranks])
+                                for k in ranks[0]["render_ms"]},
+           "dense_frame_ms": [r["dense_frame_ms"] for r in ranks],
+           "triangles": ranks[0]["triangles"], "mesh_ms": [r["mesh_ms"] for r in ranks],
+           "launches_per_rank": {"fusion": [r["fusion_launches"] for r in ranks],
+                                 **{k: [r["mc_launches"][k] for r in ranks]
+                                    for k in ranks[0]["mc_launches"]},
+                                 **{f"raycast_{k}": [r["raycast_launches"][k] for r in ranks]
+                                    for k in ranks[0]["raycast_launches"]}},
+           "valid_pixels": ranks[0]["valid_pixels"]}
+    log(f"parallel: {res['layout']}, backend {res['backend']} (both ranks share one card: "
+        f"{res['devices']}); {spec['frames']} colored frames sharded: {res['bricks']} bricks "
+        f"({res['local_bricks']} a rank), equal to one device's (sdf/M err "
+        f"{res['bricks_max_sdf_m_err']}); frame {res['frame_ms_median']:.3f} ms (median, host "
+        f"clock, 2 ranks on 1 card), merge {res['merge_ms']} ms; the three sharded renders "
+        f"equal to the single-device kernel render, ms {res['render_ms_median']}; dense "
+        f"{spec['dense_frames']} frames equal, ms {res['dense_frame_ms']}; launches per rank "
+        f"{res['launches_per_rank']}; {wall:.1f} s wall")
     return res
 
 
@@ -807,7 +1116,31 @@ def main() -> int:
         cli_numbers = cli_phase(torch, tmp)
     cli_numbers["card"] = smi
 
+    # ---- phase 8: pose refinement at full width on the phase-2 volume ------
+    refine_numbers = refine_phase(torch, cfg, vol, poses_h[n_poses // 2])
+    refine_numbers["card"] = smi
+
+    # ---- phase 9: the sharded paths, 2 ranks sharing the card --------------
+    par = parallel_phase(torch, cfg)
+    par["card"] = smi
+    on_paths = {"fusion": {"main": main_launches["fusion"], "cli": cli_numbers["launches"]["fusion"],
+                           "parallel_per_rank": par["launches_per_rank"]["fusion"]},
+                "mc_corner_halo": {"main": main_launches["corner_halo"],
+                                   "cli": cli_numbers["launches"]["corner_halo"],
+                                   "parallel_per_rank": par["launches_per_rank"]["corner_halo"]},
+                "mc_emit": {"main": main_launches["emit"], "cli": cli_numbers["launches"]["emit"],
+                            "parallel_per_rank": par["launches_per_rank"]["emit"]},
+                "raycast": {"main": kernels[-1]["launches"],
+                            "cli": cli_numbers["launches"]["raycast"],
+                            **{f"parallel_per_rank_{k[8:]}": v
+                               for k, v in par["launches_per_rank"].items()
+                               if k.startswith("raycast_")}}}
+    for k in kernels:
+        k["launches_on_paths"] = on_paths[k["name"]]
+
     print(json.dumps({"cli": cli_numbers}))
+    print(json.dumps({"refine": refine_numbers}))
+    print(json.dumps({"parallel": par}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

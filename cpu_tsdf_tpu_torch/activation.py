@@ -292,20 +292,35 @@ def pick_tile_bricks(nb: Tuple[int, int, int]) -> int:
 
 def band_candidate_bricks(cfg: TSDFConfig, B: int, nb: Tuple[int, int, int],
                           mips: DepthMips, pose_inv, update_budget: int,
-                          tile_budget: int = 1024):
+                          tile_budget: int = 1024, x_slab=None):
     """Budgeted list of bricks intersecting this frame's truncation band.
 
     Returns (cand [update_budget] int32 brick linear ids (-1 pad), n_band,
     overflow) as tensors, in TILE-MAJOR order (ascending tile id, then
     local brick id within the tile). `pose_inv` maps volume frame ->
-    camera frame."""
+    camera frame.
+
+    x_slab = (bx_lo, nbw) restricts the list to bricks with bx in
+    [bx_lo, bx_lo + nbw), the slab of one rank of the sharded integrate
+    (``parallel.bricks``). Only the tile columns that overlap the slab are
+    tested, so the cost scales with the slab, and the per-brick tests are
+    unchanged: the list is the global one filtered to the slab, in the
+    same order."""
     dev = pose_inv.device
     f32 = torch.float32
     nbx, nby, nbz = nb
     TB = pick_tile_bricks(nb)
     ntx, nty, ntz = -(-nbx // TB), -(-nby // TB), -(-nbz // TB)
     NT = ntx * nty * ntz
-    tile_budget = min(tile_budget, NT)
+    if x_slab is None:
+        NT_iter, tx_off = NT, 0
+    else:
+        bx_lo, nbw = x_slab
+        # a slab nbw bricks wide overlaps at most ceil(nbw / TB) + 1 tile columns
+        ncols = min(ntx, -(-nbw // TB) + 1)
+        tx_off = min(bx_lo // TB, ntx - ncols)
+        NT_iter = ncols * nty * ntz
+    tile_budget = min(tile_budget, NT_iter)
     csx, csy, csz = cfg.cell_size
 
     def cam_center_radius(x0, y0, z0, x1, y1, z1):
@@ -328,7 +343,7 @@ def band_candidate_bricks(cfg: TSDFConfig, B: int, nb: Tuple[int, int, int],
             torch.clamp(z0 + TB * B * csz, max=cfg.zsize))
 
     # ---- tile pass -------------------------------------------------------
-    ti = torch.arange(NT, dtype=torch.int32, device=dev)
+    ti = torch.arange(NT_iter, dtype=torch.int32, device=dev) + tx_off * (nty * ntz)
     tile_act = _band_test(cfg, mips, *tile_sphere(ti // (nty * ntz), (ti // ntz) % nty,
                                                   ti % ntz), dilated=True)
     tiles, n_tiles = _compact(tile_act, ti, tile_budget)
@@ -347,6 +362,9 @@ def band_candidate_bricks(cfg: TSDFConfig, B: int, nb: Tuple[int, int, int],
     by = tty[:, None] * TB + ly[None, :]
     bz = ttz[:, None] * TB + lz[None, :]
     in_grid = (bx < nbx) & (by < nby) & (bz < nbz) & tile_ok[:, None]
+    if x_slab is not None:
+        # the boundary tile columns may straddle the slab's edges
+        in_grid = in_grid & (bx >= bx_lo) & (bx < bx_lo + nbw)
     bx0 = bx.to(f32) * (B * csx)
     by0 = by.to(f32) * (B * csy)
     bz0 = bz.to(f32) * (B * csz)

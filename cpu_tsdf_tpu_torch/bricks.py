@@ -415,7 +415,14 @@ def integrate_bricks_sequence(vol: BrickVolume, depths, poses, rgbs=None,
                               ) -> BrickVolume:
     """Fuse a sequence of frames ([N, H, W] depths, [N, 4, 4] poses,
     optional [N, H, W, 3] rgbs) in order, IN PLACE; equal to calling
-    :func:`integrate_bricks` per frame with the same split_generator."""
+    :func:`integrate_bricks` per frame with the same split_generator.
+
+    With num_random_splits > 1 and no split_generator, one generator seeded
+    0 on the volume's device serves the whole sequence, so every frame
+    draws its own jitter (the JAX package splits one key into per-frame
+    keys)."""
+    if vol.config.num_random_splits > 1 and split_generator is None:
+        split_generator = torch.Generator(device=vol.device).manual_seed(0)
     for i in range(len(depths)):
         integrate_bricks(vol, depths[i], poses[i],
                          None if rgbs is None else rgbs[i], update_budget,

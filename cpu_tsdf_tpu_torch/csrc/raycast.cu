@@ -88,6 +88,28 @@ struct RaycastParams {
   int brick_shift;                           // log2(B) if B is a power of two, else -1
   int brick_mask;                            // B - 1
   int tile_width;                            // rays form rows this long: 8x4 warp tiles; 0 = none
+  int relay_x_lo, relay_x_hi;                // relay march: the voxel x range of this slab
+};
+
+// The relay march (ops/raycast_kernel.py::march(relay=...)) splits a ray's
+// phase-1 march between slabs of the volume held by different ranks: a
+// thread starts from the ray's state and suspends it at the first sample
+// inside the volume but outside [relay_x_lo, relay_x_hi), so the next slab's
+// owner resumes exactly where this one stopped. The state rows, [8, n]:
+enum RelayRow : int {
+  kRelayT = 0, kRelayStep, kRelayLastD, kRelayLastW, kRelayHit, kRelayIter,
+  kRelaySuspended,   // 1: suspended at a sample outside the slab; 0: done here
+  kRelayIx,          // the voxel x index of that sample
+  kRelayRows
+};
+
+// One ray's phase-1 state: the march's loop variables.
+struct MarchState {
+  float t, step, last_d, last_w;
+  bool hit;
+  int it;
+  bool suspended;
+  int ix;
 };
 
 constexpr int kThreads = 128;
@@ -245,18 +267,30 @@ struct Volume {
   }
 
   // Adaptive march (cpp:318-371) and, where it found a crossing, the
-  // half-voxel backtrack (cpp:329-354) of one ray; t ends as t_bt.
+  // half-voxel backtrack (cpp:329-354) of one ray from state s; t ends as
+  // t_bt. With R (the relay march), a sample inside the volume but outside
+  // the slab suspends the ray: s then holds the state at that sample.
+  template <bool R>
   __device__ __forceinline__ void march(float ox, float oy, float oz, float dx, float dy,
-                                        float dz, BrickCache& c, float& t,
-                                        bool& found) const {
-    float step = p.min_step, last_d = 0.0f, last_w = 0.0f;
-    bool hit_voxel = false, done = false;
-    t = p.min_dist;
+                                        float dz, BrickCache& c, float& t, bool& found,
+                                        MarchState& s) const {
+    float step = s.step, last_d = s.last_d, last_w = s.last_w;
+    bool hit_voxel = s.hit, done = false;
+    t = s.t;
     found = false;
-    for (int it = 0; it < p.max_steps && !done; ++it) {
+    s.suspended = false;
+    for (int it = s.it; it < p.max_steps && !done; ++it) {
+      const float x = ox + t * dx, y = oy + t * dy, z = oz + t * dz;
+      if (R) {
+        const int ix = index(x, p.half_x, p.size_x, p.xres);
+        if (inside(x, y, z) && (ix < p.relay_x_lo || ix >= p.relay_x_hi)) {
+          s = MarchState{t, step, last_d, last_w, hit_voxel, it, true, ix};
+          return;
+        }
+      }
       float d, w;
       bool in;
-      sample(ox + t * dx, oy + t * dy, oz + t * dz, c, d, w, in);
+      sample(x, y, z, c, d, w, in);
       const bool crossing = in && ((d < 0.0f && last_d > 0.0f) || (d > 0.0f && last_d < 0.0f)) &&
                             last_w != 0.0f && w != 0.0f;
       // leaving the volume after having been inside ends the ray (cpp:363-367)
@@ -346,21 +380,38 @@ __device__ __forceinline__ int ray_of_thread(const RaycastParams& p) {
          (lane & 7);
 }
 
-template <int L>
+template <int L, bool R>
 __global__ void __launch_bounds__(kThreads)
 raycast_kernel(RaycastParams params, const float* __restrict__ rd,
                const int* __restrict__ bmap, const float* __restrict__ origins,
-               const float* __restrict__ dirs, int n_rays, float* __restrict__ out) {
+               const float* __restrict__ dirs, int n_rays, float* __restrict__ out,
+               float* __restrict__ relay) {
   const int i = ray_of_thread(params);
   if (i >= n_rays) return;
   const Volume<L> vol{params, rd, bmap};
   const float ox = origins[3 * i], oy = origins[3 * i + 1], oz = origins[3 * i + 2];
   const float dx = dirs[3 * i], dy = dirs[3 * i + 1], dz = dirs[3 * i + 2];
+  const size_t n = n_rays;
+  MarchState s{params.min_dist, params.min_step, 0.0f, 0.0f, false, 0, false, 0};
+  if (R) {
+    s = MarchState{relay[kRelayT * n + i], relay[kRelayStep * n + i],
+                   relay[kRelayLastD * n + i], relay[kRelayLastW * n + i],
+                   relay[kRelayHit * n + i] != 0.0f, (int)relay[kRelayIter * n + i], false, 0};
+  }
   BrickCache cache;
   float t;
   bool found;
-  vol.march(ox, oy, oz, dx, dy, dz, cache, t, found);
-  const size_t n = n_rays;
+  vol.template march<R>(ox, oy, oz, dx, dy, dz, cache, t, found, s);
+  if (R) {
+    relay[kRelayT * n + i] = s.t;
+    relay[kRelayStep * n + i] = s.step;
+    relay[kRelayLastD * n + i] = s.last_d;
+    relay[kRelayLastW * n + i] = s.last_w;
+    relay[kRelayHit * n + i] = s.hit ? 1.0f : 0.0f;
+    relay[kRelayIter * n + i] = (float)s.it;
+    relay[kRelaySuspended * n + i] = s.suspended ? 1.0f : 0.0f;
+    relay[kRelayIx * n + i] = (float)s.ix;
+  }
   out[i] = t;
   out[n + i] = found ? 1.0f : 0.0f;
   if (found) {
@@ -378,20 +429,29 @@ static dim3 raycast_grid(const RaycastParams& p, int n) {
   return dim3((n + kThreads - 1) / kThreads);
 }
 
+// relay: null for the whole march, else the [8, n] relay state, read and
+// written in place.
 extern "C" int tsdf_raycast(const RaycastParams* params, const void* rd,
                             const void* brick_map, const void* origins,
-                            const void* dirs, int n_rays, void* out, void* stream) {
+                            const void* dirs, int n_rays, void* out, void* relay,
+                            void* stream) {
   if (n_rays > 0) {
     const RaycastParams& p = *params;
     const dim3 grid = raycast_grid(p, n_rays);
     cudaStream_t st = (cudaStream_t)stream;
-#define TSDF_RAYCAST(L)                                                            \
-  raycast_kernel<L><<<grid, kThreads, 0, st>>>(p, (const float*)rd, (const int*)brick_map, \
-                                              (const float*)origins, (const float*)dirs, \
-                                              n_rays, (float*)out)
-    if (p.brick == 0) TSDF_RAYCAST(kDense);
-    else if (p.brick_shift >= 0) TSDF_RAYCAST(kPow2);
-    else TSDF_RAYCAST(kDiv);
+#define TSDF_RAYCAST(L, R)                                                         \
+  raycast_kernel<L, R><<<grid, kThreads, 0, st>>>(                                 \
+      p, (const float*)rd, (const int*)brick_map, (const float*)origins,           \
+      (const float*)dirs, n_rays, (float*)out, (float*)relay)
+    if (relay == nullptr) {
+      if (p.brick == 0) TSDF_RAYCAST(kDense, false);
+      else if (p.brick_shift >= 0) TSDF_RAYCAST(kPow2, false);
+      else TSDF_RAYCAST(kDiv, false);
+    } else {
+      if (p.brick == 0) TSDF_RAYCAST(kDense, true);
+      else if (p.brick_shift >= 0) TSDF_RAYCAST(kPow2, true);
+      else TSDF_RAYCAST(kDiv, true);
+    }
 #undef TSDF_RAYCAST
   }
   return (int)cudaGetLastError();

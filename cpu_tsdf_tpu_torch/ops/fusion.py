@@ -46,10 +46,12 @@ def coarse_cell_frustum(cfg: TSDFConfig, trans_inv, vx, vy, vz):
     return frustum_contains(cfg, trans_inv, ccx, ccy, ccz)
 
 
-def coarse_frustum_mask(cfg: TSDFConfig, trans_inv):
-    """Dense [xres,yres,zres] version of :func:`coarse_cell_frustum`."""
+def coarse_frustum_mask(cfg: TSDFConfig, trans_inv, x_slab=None):
+    """Dense [xres,yres,zres] version of :func:`coarse_cell_frustum`; with
+    x_slab = (x0, nx), that of the X-slab [x0, x0 + nx) only."""
     dev = trans_inv.device
-    vx = torch.arange(cfg.xres, dtype=torch.int32, device=dev)[:, None, None]
+    x0, nx = (0, cfg.xres) if x_slab is None else x_slab
+    vx = torch.arange(x0, x0 + nx, dtype=torch.int32, device=dev)[:, None, None]
     vy = torch.arange(cfg.yres, dtype=torch.int32, device=dev)[None, :, None]
     vz = torch.arange(cfg.zres, dtype=torch.int32, device=dev)[None, None, :]
     return coarse_cell_frustum(cfg, trans_inv, vx, vy, vz)
@@ -120,14 +122,24 @@ def integrate(vol: TSDFVolume, depth, pose, rgb: Optional[torch.Tensor] = None) 
       pose: [4, 4] camera-to-volume transform.
       rgb: optional [H, W, 3] float32 (0..255) color image.
     """
+    return integrate_slab(vol, depth, pose, rgb)
+
+
+def integrate_slab(vol: TSDFVolume, depth, pose, rgb: Optional[torch.Tensor] = None,
+                   x0: int = 0) -> TSDFVolume:
+    """:func:`integrate` on the X-slab [x0, x0 + n) of the grid, where vol's
+    tensors hold that slab's n x-planes (the slab-sharded volume of
+    ``parallel.sharding``); voxel centres and the coarse frustum cells are
+    those of the slab's global indices."""
     cfg = vol.config
     dev = vol.device
     depth = torch.as_tensor(depth, dtype=torch.float32, device=dev)
     pose_inv = rigid_inverse(torch.as_tensor(pose, dtype=torch.float32, device=dev))
-    cx, cy, cz = voxel_centers_grid(cfg, dev)
+    x_slab = (x0, vol.sdf.shape[0])
+    cx, cy, cz = voxel_centers_grid(cfg, dev, x_slab)
     d_obs, w_obs, valid, _, u, v = compute_observation(cfg, depth, pose_inv, cx, cy, cz)
     if cfg.frustum_culling:
-        valid = valid & coarse_frustum_mask(cfg, pose_inv)
+        valid = valid & coarse_frustum_mask(cfg, pose_inv, x_slab)
     w_obs = variance_weight(cfg, w_obs, d_obs, vol.sdf, vol.weight, vol.M, vol.nsample)
     d_upd, w_upd, M_upd, n_upd = fuse_observation(
         vol.sdf, vol.weight, vol.M, vol.nsample, d_obs, w_obs, cfg.max_weight)

@@ -68,20 +68,32 @@ def camera_rays(cfg: TSDFConfig, pose, downsample_by: int = 1):
     return pose[:3, 3][None, :].expand(N, 3), torch.stack([dx, dy, dz], -1)
 
 
-def render_rays(vol: PackedRenderVolume, origins, dirs, max_steps: int = 512,
-                colored: bool = False, use_kernel: bool = False) -> dict:
+def render_rays(vol, origins, dirs, max_steps: int = 512, colored: bool = False,
+                use_kernel: Optional[bool] = None) -> dict:
     """March arbitrary rays (float32 [N, 3] origins and unit dirs in the
-    VOLUME frame) through a packed render view.
+    VOLUME frame) through a dense, brick or packed volume (a volume that is
+    not packed yet is packed here, ``bricks.pack_render``).
 
     Returns a dict of flat [N] tensors: hit points (volume frame), normals,
     t_star, validity masks, and with `colored` the rgb of the voxel at the
-    hit. use_kernel picks the march: the CUDA kernel, or its plain version
-    (the lockstep loop of the JAX package's render_rays)."""
+    hit. use_kernel: None = the CUDA kernel on the card and the plain march
+    (the lockstep loop of the JAX package's render_rays) on the CPU;
+    False = the plain march anywhere."""
     from .raycast_kernel import march, march_plain
 
+    kernel = resolve_use_kernel(use_kernel, vol.device)
+    if not isinstance(vol, PackedRenderVolume):
+        vol = pack_render(vol)
+    origins, dirs = origins.contiguous(), dirs.contiguous()
+    engine = march if kernel else march_plain
+    return rays_from_channels(vol, origins, dirs, engine(vol, origins, dirs, max_steps),
+                              colored)
+
+
+def rays_from_channels(vol: PackedRenderVolume, origins, dirs, ch, colored: bool) -> dict:
+    """render_rays' dict from the march's [8, N] channels (see
+    ``raycast_kernel``) of these rays."""
     cfg = vol.config
-    engine = march if use_kernel else march_plain
-    ch = engine(vol, origins.contiguous(), dirs.contiguous(), max_steps)
     t_star = ch[2]
     hx, hy, hz = (origins[:, i] + t_star * dirs[:, i] for i in range(3))
     valid = ch[3] > 0
@@ -107,8 +119,6 @@ def render_view(vol, pose, downsample_by: int = 1, max_steps: int = 512,
     the CPU; False = the plain march anywhere."""
     dev = vol.device
     kernel = resolve_use_kernel(use_kernel, dev)
-    if not isinstance(vol, PackedRenderVolume):
-        vol = pack_render(vol)
     cfg = vol.config
     pose = torch.as_tensor(pose, dtype=torch.float32, device=dev)
     origins, dirs = camera_rays(cfg, pose, downsample_by)

@@ -60,7 +60,12 @@ class RaycastParams(ctypes.Structure):
         + [(n, ctypes.c_int) for n in (
             "xres", "yres", "zres", "brick", "nbx", "nby", "nbz", "capacity",
             "max_steps", "bt_max", "trilinear", "brick_shift", "brick_mask",
-            "tile_width")])
+            "tile_width", "relay_x_lo", "relay_x_hi")])
+
+# The relay march's state rows, [RELAY_ROWS, N] float32 (csrc/raycast.cu
+# RelayRow): t, step, last_d, last_w, hit (0/1), iteration, suspended (0/1)
+# and the voxel x index of the sample that suspended the ray.
+RELAY_ROWS = 8
 
 
 def _constants(cfg: TSDFConfig):
@@ -95,8 +100,9 @@ def tile_width(cfg: TSDFConfig, n_rays: int) -> int:
 
 
 def raycast_params(vol: PackedRenderVolume, max_steps: int,
-                   tile: int = 0) -> RaycastParams:
-    """The kernel's parameters; tile: see :func:`tile_width`."""
+                   tile: int = 0, relay_x=(0, 0)) -> RaycastParams:
+    """The kernel's parameters; tile: see :func:`tile_width`; relay_x: the
+    slab's voxel x range for the relay march."""
     cfg = vol.config
     k = _constants(cfg)
     csx, csy, csz = cfg.cell_size
@@ -109,7 +115,16 @@ def raycast_params(vol: PackedRenderVolume, max_steps: int,
         k["min_adaptive_step"], cfg.max_dist_neg, k["half_cell"],
         cfg.xres, cfg.yres, cfg.zres, B, *nb, vol.capacity, max_steps,
         bt_steps(cfg), int(cfg.use_trilinear_interpolation),
-        B.bit_length() - 1 if B and B & (B - 1) == 0 else -1, B - 1, tile)
+        B.bit_length() - 1 if B and B & (B - 1) == 0 else -1, B - 1, tile, *relay_x)
+
+
+def relay_state(cfg: TSDFConfig, n: int, device) -> torch.Tensor:
+    """The relay state of n rays that have not started: t = min_sensor_dist,
+    the initial step 3/4 max_dist_neg, no sample yet."""
+    state = torch.zeros((RELAY_ROWS, n), dtype=torch.float32, device=device)
+    state[0] = cfg.min_sensor_dist
+    state[1] = _constants(cfg)["min_step"]
+    return state
 
 
 def _sign_change(d, last_d):
@@ -179,7 +194,7 @@ OPS_PER_NORMAL = 535
 
 
 def march_plain(vol: PackedRenderVolume, origins, dirs, max_steps: int = 512,
-                work: Optional[_Work] = None):
+                work: Optional[_Work] = None, relay=None):
     """Plain PyTorch version of the kernel: the reference march of
     ``cpu_tsdf_tpu/ops/raycast.py::render_rays`` (phases 1-3 and the
     normals) as a lockstep loop over all rays. Same arguments and channels
@@ -207,16 +222,34 @@ def march_plain(vol: PackedRenderVolume, origins, dirs, max_steps: int = 512,
         return d, w, in_volume(cfg, x, y, z)
 
     # ---- phase 1: adaptive march (cpp:318-371) ----
-    t, step = full(cfg.min_sensor_dist), full(k["min_step"])
-    last_d, last_w = full(0.0), full(0.0)
-    hit_voxel = torch.zeros(N, dtype=torch.bool, device=dev)
+    if relay is None:
+        t, step = full(cfg.min_sensor_dist), full(k["min_step"])
+        last_d, last_w = full(0.0), full(0.0)
+        hit_voxel = torch.zeros(N, dtype=torch.bool, device=dev)
+        iters = torch.zeros(N, dtype=torch.int32, device=dev)
+    else:
+        state, x_lo, x_hi = relay
+        t, step, last_d, last_w = (state[r].clone() for r in range(4))
+        hit_voxel = state[4] > 0
+        iters = state[5].to(torch.int32)
+        suspended = torch.zeros_like(hit_voxel)
+        suspended_ix = full(0.0)
     found = torch.zeros_like(hit_voxel)
-    done = torch.zeros_like(hit_voxel)
+    done = iters >= max_steps
     for it in range(max_steps):
         # done rays never change, so the check may skip iterations
         if it % 4 == 0 and bool(done.all()):
             break
         active = ~done
+        if relay is not None:
+            # a sample inside the volume but outside the slab suspends the ray
+            x, y, z = point(t)
+            ix = voxel_index(cfg, x, y, z)[0]
+            stop = active & in_volume(cfg, x, y, z) & ((ix < x_lo) | (ix >= x_hi))
+            suspended_ix = torch.where(stop, ix.to(torch.float32), suspended_ix)
+            suspended = suspended | stop
+            done = done | stop
+            active = active & ~stop
         d, w, inside = sample_nn(t, active)
         crossing = inside & _sign_change(d, last_d) & (last_w != 0) & (w != 0) & active
         # leaving the volume after having been inside ends the ray (cpp:363-367)
@@ -229,7 +262,12 @@ def march_plain(vol: PackedRenderVolume, origins, dirs, max_steps: int = 512,
         hit_voxel = hit_voxel | (inside & active)
         found = found | crossing
         t = torch.where(active & ~crossing & ~exit_ray, t + step, t)
-        done = done | crossing | exit_ray | (t >= cfg.max_sensor_dist)
+        iters = iters + active.to(torch.int32)
+        done = done | crossing | exit_ray | (t >= cfg.max_sensor_dist) | (iters >= max_steps)
+    if relay is not None:
+        state[0], state[1], state[2], state[3] = t, step, last_d, last_w
+        state[4], state[5] = hit_voxel.to(torch.float32), iters.to(torch.float32)
+        state[6], state[7] = suspended.to(torch.float32), suspended_ix
 
     # ---- phase 2: half-voxel backtrack (cpp:329-354) ----
     # `while (t >= old_t) { t -= step; sample; if outside break;
@@ -265,37 +303,49 @@ def march_plain(vol: PackedRenderVolume, origins, dirs, max_steps: int = 512,
     denom = torch.where(denom == 0, full(1e-20), denom)
     t_star = t_bt + step_r * (-1.0 + torch.abs(last_d_tri / denom))
     hx, hy, hz = point(t_star)
-
-    # ---- normals: central differences at +-1 cell (cpp:398-419) ----
-    csx, csy, csz = cfg.cell_size
-    nvalid = valid & in_volume(cfg, hx, hy, hz)
-    queries = ((hx - csx, hy, hz), (hx + csx, hy, hz), (hx, hy - csy, hz),
-               (hx, hy + csy, hz), (hx, hy, hz - csz), (hx, hy, hz + csz))
-    vals = []
-    for q in queries:
-        v, ok = tsdf_value_vol(vol, *q)
-        nvalid = nvalid & ok
-        vals.append(v)
-    d_xm, d_xp, d_ym, d_yp, d_zm, d_zp = vals
-    nx = div_const((d_xp - d_xm) * cfg.max_dist_neg, 2 * csx)
-    ny = div_const((d_yp - d_ym) * cfg.max_dist_neg, 2 * csy)
-    nz = div_const((d_zp - d_zm) * cfg.max_dist_neg, 2 * csz)
-    nn = torch.sqrt(nx * nx + ny * ny + nz * nz)
-    nn = torch.where(nn == 0, full(1.0), nn)
+    nvalid, nx, ny, nz = normals_plain(vol, hx, hy, hz, valid)
 
     if work is not None:
         work.refined += int(found.sum())
         work.normals += int(valid.sum())
         for tq in (t_prev, t_bt):
             work.mark_query(*point(tq), found)
-        for q in queries:
+        for q in _normal_queries(cfg, hx, hy, hz):
             work.mark_query(*q, valid)
 
     zero = full(0.0)
-    return torch.stack([
-        t_bt, found.float(), torch.where(found, t_star, zero), valid.float(),
-        nvalid.float(), torch.where(valid, nx / nn, zero),
-        torch.where(valid, ny / nn, zero), torch.where(valid, nz / nn, zero)])
+    return torch.stack([t_bt, found.float(), torch.where(found, t_star, zero), valid.float(),
+                        nvalid.float(), nx, ny, nz])
+
+
+def _normal_queries(cfg: TSDFConfig, hx, hy, hz):
+    csx, csy, csz = cfg.cell_size
+    return ((hx - csx, hy, hz), (hx + csx, hy, hz), (hx, hy - csy, hz),
+            (hx, hy + csy, hz), (hx, hy, hz - csz), (hx, hy, hz + csz))
+
+
+def normals_plain(vol, hx, hy, hz, valid):
+    """The march's normals at the hits (hx, hy, hz) of the `valid` rays:
+    central differences at +-1 cell (cpp:398-419), unit length; (nvalid,
+    nx, ny, nz), zero normals where not valid. Channels 4-7 of
+    :func:`march_plain`, which the kernel reproduces bit for bit."""
+    cfg = vol.config
+    nvalid = valid & in_volume(cfg, hx, hy, hz)
+    vals = []
+    for q in _normal_queries(cfg, hx, hy, hz):
+        v, ok = tsdf_value_vol(vol, *q)
+        nvalid = nvalid & ok
+        vals.append(v)
+    d_xm, d_xp, d_ym, d_yp, d_zm, d_zp = vals
+    csx, csy, csz = cfg.cell_size
+    nx = div_const((d_xp - d_xm) * cfg.max_dist_neg, 2 * csx)
+    ny = div_const((d_yp - d_ym) * cfg.max_dist_neg, 2 * csy)
+    nz = div_const((d_zp - d_zm) * cfg.max_dist_neg, 2 * csz)
+    nn = torch.sqrt(nx * nx + ny * ny + nz * nz)
+    nn = torch.where(nn == 0, torch.ones_like(nn), nn)
+    zero = torch.zeros_like(nn)
+    return (nvalid, torch.where(valid, nx / nn, zero), torch.where(valid, ny / nn, zero),
+            torch.where(valid, nz / nn, zero))
 
 
 def _check_inputs(vol: PackedRenderVolume, origins, dirs) -> None:
@@ -314,28 +364,51 @@ def _check_inputs(vol: PackedRenderVolume, origins, dirs) -> None:
                  (cfg.xres // B, cfg.yres // B, cfg.zres // B), dev)
 
 
-def march(vol: PackedRenderVolume, origins, dirs, max_steps: int = 512):
+def march(vol: PackedRenderVolume, origins, dirs, max_steps: int = 512,
+          tile: Optional[int] = None, relay=None):
     """March the rays (float32 [N, 3] origins and unit dirs, volume frame)
     through the packed render view; returns float32 [8, N] channels (see
     the module docstring).
 
+    tile: the row length of the rays' pixel layout for the kernel's 8x4
+    warp tiles (a multiple of 32 that divides N into groups of 4 rows), 0
+    for none; None = :func:`tile_width` of the camera image. It only
+    permutes which thread marches which ray.
+
+    relay = (state, x_lo, x_hi): the relay march of a slab [x_lo, x_hi) of
+    voxel x indices. Each ray starts from its column of `state` ([RELAY_ROWS,
+    N], see :func:`relay_state`) and is suspended at its first sample
+    inside the volume but outside the slab; `state` is updated in place
+    (suspended rays keep the state at that sample, the others are done).
+    Marching a ray slab by slab, each slab from where the last stopped,
+    gives the channels of one march of the whole volume.
+
     On CPU tensors this is :func:`march_plain`; on CUDA tensors it launches
     csrc/raycast.cu and raises on anything the kernel does not take."""
     if vol.device.type == "cpu":
-        return march_plain(vol, origins, dirs, max_steps)
-    from .._build import check, function, stream_ptr
+        return march_plain(vol, origins, dirs, max_steps, relay=relay)
+    from .._build import check, check_tensor, function, stream_ptr
 
     _check_inputs(vol, origins, dirs)
     dev = vol.device
     N = origins.shape[0]
+    if tile is None:
+        tile = tile_width(vol.config, N)
+    if tile and (tile % 32 or N % (4 * tile)):
+        raise ValueError(f"march: tile {tile} does not lay {N} rays out in 8x4 tiles")
+    state = None
+    if relay is not None:
+        state, x_lo, x_hi = relay
+        check_tensor("march: relay state", state, torch.float32, (RELAY_ROWS, N), dev)
     out = torch.empty((NCH, N), dtype=torch.float32, device=dev)
     fn = function("raycast", "tsdf_raycast",
                   [ctypes.POINTER(RaycastParams)] + [ctypes.c_void_p] * 4
-                  + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-    params = raycast_params(vol, max_steps, tile_width(vol.config, N))
+                  + [ctypes.c_int] + [ctypes.c_void_p] * 3)
+    params = raycast_params(vol, max_steps, tile, (0, 0) if relay is None else (x_lo, x_hi))
     err = fn(ctypes.byref(params), vol.rd.data_ptr(),
              None if vol.brick_map is None else vol.brick_map.data_ptr(),
-             origins.data_ptr(), dirs.data_ptr(), N, out.data_ptr(), stream_ptr(dev))
+             origins.data_ptr(), dirs.data_ptr(), N, out.data_ptr(),
+             None if state is None else state.data_ptr(), stream_ptr(dev))
     check(err, "march")
     launches["raycast"] += 1
     return out

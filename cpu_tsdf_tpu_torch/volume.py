@@ -15,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .config import (
@@ -100,14 +101,24 @@ def reset(vol: TSDFVolume) -> TSDFVolume:
     return dataclasses.replace(fresh, global_transform=vol.global_transform)
 
 
-def voxel_centers_grid(cfg: TSDFConfig, device=None):
-    """All voxel centers, [xres, yres, zres] per axis."""
+def occupied_voxel_indices(vol: TSDFVolume) -> np.ndarray:
+    """Indices of voxels with w > 0 and |d| < 1, in row-major order
+    (getOccupiedVoxelIndices, tsdf_volume_octree.cpp:590-609): an [N, 3]
+    int32 array on the host (its length depends on the data)."""
+    mask = (vol.weight > 0) & (torch.abs(vol.sdf) < 1)
+    return torch.nonzero(mask).to(torch.int32).cpu().numpy()
+
+
+def voxel_centers_grid(cfg: TSDFConfig, device=None, x_slab=None):
+    """All voxel centers, [xres, yres, zres] per axis; with x_slab = (x0,
+    nx) those of the X-slab [x0, x0 + nx) only, [nx, yres, zres]."""
     from .geometry import voxel_center
 
     dev = resolve_device(device)
-    ix = torch.arange(cfg.xres, dtype=torch.float32, device=dev)[:, None, None]
+    x0, nx = (0, cfg.xres) if x_slab is None else x_slab
+    ix = torch.arange(x0, x0 + nx, dtype=torch.float32, device=dev)[:, None, None]
     iy = torch.arange(cfg.yres, dtype=torch.float32, device=dev)[None, :, None]
     iz = torch.arange(cfg.zres, dtype=torch.float32, device=dev)[None, None, :]
     x, y, z = voxel_center(cfg, ix, iy, iz)
-    shape = (cfg.xres, cfg.yres, cfg.zres)
+    shape = (nx, cfg.yres, cfg.zres)
     return x.expand(shape), y.expand(shape), z.expand(shape)

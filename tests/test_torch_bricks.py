@@ -248,7 +248,11 @@ def test_entry_points_refuse_what_is_not_ported(small_cfg):
 def _jax_draws(H, W, n_extra, generator):
     """The JAX package's per-frame jitter draws (PRNGKey(0), split as its
     _jitter_split_bricks splits it), in the port's draw_split_noise form."""
-    key = jax.random.PRNGKey(0)
+    return _jax_key_draws(jax.random.PRNGKey(0), H, W, n_extra)
+
+
+def _jax_key_draws(key, H, W, n_extra):
+    """The jitter draws _jitter_split_bricks takes from `key`."""
     out = []
     for _ in range(n_extra):
         key, k1, k2 = jax.random.split(key, 3)
@@ -273,6 +277,48 @@ def test_random_splits_match_jax(small_cfg, monkeypatch, mode):
         tb.integrate_bricks(tv, depth, p, rgb, 1024)
     assert int(jv.n_active) > 50 and not bool(jv.overflowed)
     assert_volumes_match(tv, jv, mode)
+
+
+def test_sequence_random_splits_match_jax(small_cfg, monkeypatch):
+    """integrate_bricks_sequence with num_random_splits=3 and no generator
+    draws other jitter in every frame: one generator seeded 0 serves the
+    sequence. The JAX sequence splits PRNGKey(0) into one key a frame; the
+    port's draw_split_noise is fed frame k's draws when its generator is at
+    its k-th draw since the seed, so the two sequences give one volume. The
+    scene is fine enough (3 mm voxels, 4^3 bricks, 4 mm truncation) that the
+    jitter's up to 3 cm moves allocate bricks the band does not."""
+    jcfg = small_cfg.with_updates(
+        xsize=0.192, ysize=0.192, zsize=0.192, max_dist_pos=0.004, max_dist_neg=0.004,
+        min_sensor_dist=0.05, max_cell_size_x=0.048, max_cell_size_y=0.048,
+        max_cell_size_z=0.048, num_random_splits=3)
+    cfg = TSDFConfig.from_json(jcfg.to_json())
+    depth = sphere_depth(jcfg, center=(-0.002, -0.003, 0.16), radius=0.06)
+    poses = np.stack([tilted_pose(tx=0.002, ty=0.003, tz=-0.16),
+                      tilted_pose(tx=0.009, ty=0.006, tz=-0.155),
+                      tilted_pose(tx=-0.007, ty=0.001, tz=-0.165)]).astype(np.float32)
+    n = len(poses)
+    keys = jax.random.split(jax.random.PRNGKey(0), n)
+    probe = torch.Generator().manual_seed(0)
+    marks = [int(torch.randint(1 << 30, (1,), generator=probe)) for _ in range(n)]
+
+    def draws(H, W, n_extra, generator):
+        k = marks.index(int(torch.randint(1 << 30, (1,), generator=generator)))
+        return _jax_key_draws(keys[k], H, W, n_extra)
+
+    monkeypatch.setattr(tb, "draw_split_noise", draws)
+    jv = jb.integrate_bricks_sequence(jb.make_brick_volume(jcfg, 4, 4096),
+                                      jnp.asarray(np.stack([depth] * n)),
+                                      jnp.asarray(poses), None, 1024)
+    tv = tb.integrate_bricks_sequence(tb.make_brick_volume(cfg, 4, 4096, device="cpu"),
+                                      np.stack([depth] * n), poses, None, 1024)
+    assert int(jv.n_active) > 500 and not bool(jv.overflowed)
+    assert_volumes_match(tv, jv, None)
+    # the same draws in every frame (the former default) allocate other bricks
+    same = tb.make_brick_volume(cfg, 4, 4096, device="cpu")
+    for p in poses:
+        tb.integrate_bricks(same, depth, p, None, 1024,
+                            split_generator=torch.Generator().manual_seed(0))
+    assert not torch.equal(same.brick_map, tv.brick_map)
 
 
 @pytest.mark.parametrize("budget", [1024, 16])

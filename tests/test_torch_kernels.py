@@ -453,3 +453,59 @@ def test_cli_on_card_matches_cpu(cuda_device, tmp_path, monkeypatch):
     np.testing.assert_allclose(va, vb, atol=1e-5)
     np.testing.assert_array_equal(ca, cb)
     assert os.path.exists(tmp_path / "cuda" / "viz_0003_normals.png")
+
+
+def test_render_rays_defaults_to_the_kernel(cuda_device):
+    """render_rays on CUDA tensors launches the ray-march kernel unless the
+    caller asks for the plain march, and takes an unpacked volume; both
+    routes give the same channels."""
+    vol = _render_volume(cuda_device, {}, 4)
+    origins, dirs = rc.camera_rays(CFG, torch.as_tensor(orbit_pose(0.3), device=cuda_device))
+    rk.launches["raycast"] = 0
+    k = rc.render_rays(vol, origins, dirs)
+    assert rk.launches["raycast"] == 1
+    p = rc.render_rays(vol, origins, dirs, use_kernel=False)
+    assert rk.launches["raycast"] == 1 and int(k["valid"].sum()) > 1000
+    for name in k:
+        assert torch.equal(k[name], p[name]), name
+
+
+def test_refine_pose_step_card_matches_cpu(cuda_device):
+    """One Gauss-Newton step of refine.py on the card and on the CPU, from
+    the same volume and observation: pose and loss within 1e-4 (the card
+    sums in another order); the rotation does not move on either."""
+    from cpu_tsdf_tpu_torch.refine import exp_se3, refine_pose_step
+
+    vol = _render_volume(cuda_device, {}, 8)
+    cpu = dataclasses.replace(vol, **{f.name: getattr(vol, f.name).cpu() for f in
+                                      dataclasses.fields(vol)
+                                      if isinstance(getattr(vol, f.name), torch.Tensor)})
+    pose = orbit_pose(0.3)
+    depth = sphere_depth_world(CFG, pose, radius=0.5)
+    bad = (exp_se3(torch.tensor([0.024, -0.018, 0.015, 0.0, 0.0, 0.0])).numpy()
+           @ pose).astype(np.float32)
+    (pk, lk), (pc, lc) = (refine_pose_step(v, bad, depth, 1) for v in (vol, cpu))
+    assert pk.device.type == "cuda" and lk.device.type == "cuda"
+    np.testing.assert_allclose(pk.cpu().numpy(), pc.numpy(), atol=1e-4)
+    assert abs(float(lk) - float(lc)) <= 1e-4 * float(lc) and float(lc) > 0
+    np.testing.assert_array_equal(pk.cpu().numpy()[:3, :3], bad[:3, :3])
+
+
+def test_relay_march_kernel_matches_plain(cuda_device):
+    """The ray-march kernel's relay mode (the volume-sharded render's
+    march) against the plain relay march on the card, slab by slab in 2
+    and 4 slabs of an oblique view: the channels bit-equal, and equal to
+    one kernel march of the whole volume."""
+    from torch_parallel_worker import relay_by_slabs
+
+    pack = tb.pack_render(_render_volume(cuda_device, {}, 8))
+    origins, dirs = (t.contiguous() for t in rc.camera_rays(
+        CFG, torch.as_tensor(orbit_pose(0.8), device=cuda_device)))
+    one = rk.march(pack, origins, dirs)
+    rk.launches["raycast"] = 0
+    for D in (2, 4):
+        k, segments = relay_by_slabs(rk.march, pack, origins, dirs, D)
+        p, _ = relay_by_slabs(rk.march_plain, pack, origins, dirs, D)
+        assert segments >= 2 and int((one[3] > 0).sum()) > 1000
+        assert torch.equal(k, p) and torch.equal(k, one), D
+    assert rk.launches["raycast"] >= 4

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither jax nor the JAX package (a
-script fuses, meshes, writes a PLY, renders a view and runs the three CLI
-programs with both blocked), and its entry points default to the CUDA
+script fuses, meshes, writes a PLY, renders a view, takes a pose-refinement
+step, imports the sharded paths and runs the three CLI programs with both
+blocked), and its entry points default to the CUDA
 device with no silent CPU fallback."""
 
 import os
@@ -32,6 +33,9 @@ import cpu_tsdf_tpu_torch.convert, cpu_tsdf_tpu_torch._build  # noqa: F401
 import cpu_tsdf_tpu_torch.pipeline  # noqa: F401
 from cpu_tsdf_tpu_torch.io import checkpoint, image, pcd, poses, vol  # noqa: F401
 from cpu_tsdf_tpu_torch.cli import get_intrinsics_main, integrate_main, tsdf2mesh_main
+from cpu_tsdf_tpu_torch.refine import refine_pose_step
+import cpu_tsdf_tpu_torch.parallel  # noqa: F401
+from cpu_tsdf_tpu_torch.parallel import bricks, distributed, raycast, sharding  # noqa: F401
 
 cfg = T.TSDFConfig(xres=32, yres=32, zres=32, xsize=1.6, ysize=1.6, zsize=1.6,
                    max_dist_pos=0.1, max_dist_neg=0.1, min_sensor_dist=0.1,
@@ -49,6 +53,8 @@ assert load_ply(sys.argv[1])[1].shape == f.shape
 r = T.render_view(vol, orbit_pose(0.4), colored=False)
 n = int((~r.depth.isnan()).sum())
 assert r.depth.shape == (30, 40) and n > 300, n
+pose, loss = refine_pose_step(vol, orbit_pose(0.4), r.depth)
+assert pose.shape == (4, 4) and float(loss) >= 0.0
 
 # the CLI programs, from PCD and pose files to mesh.ply, on the CPU
 os.environ["TSDF_DEVICE"] = "cpu"

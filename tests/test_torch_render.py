@@ -25,10 +25,12 @@ import torch
 
 from cpu_tsdf_tpu import bricks as jb
 from cpu_tsdf_tpu import render_view as jax_render_view
+from cpu_tsdf_tpu.ops.raycast import render_rays as jax_render_rays
 from cpu_tsdf_tpu.synthetic import sphere_depth
 from cpu_tsdf_tpu_torch import render_view
 from cpu_tsdf_tpu_torch.config import TSDFConfig
 from cpu_tsdf_tpu_torch.convert import brick_volume_from_arrays, tsdf_volume_from_arrays
+from cpu_tsdf_tpu_torch.ops.raycast import camera_rays, render_rays
 from cpu_tsdf_tpu_torch.ops.raycast_kernel import render_depth_diff
 
 from test_fusion import tilted_pose
@@ -102,13 +104,49 @@ def test_render_view_matches_jax(scene):
 
 def test_render_dense_volume_matches_jax(scene):
     jbv, _, pose, _ = scene
+    jd, td = _dense_pair(jbv)
+    assert_renders_match(jax_render_view(jd, pose, colored=True),
+                         render_view(td, pose, colored=True), "dense, colored")
+
+
+def _dense_pair(jbv):
     jd = jb.to_dense(jbv)
     arrays = {k: None if getattr(jd, k) is None else np.asarray(getattr(jd, k))
               for k in ("sdf", "weight", "M", "nsample", "color", "global_transform")}
-    td = tsdf_volume_from_arrays(TSDFConfig.from_json(jd.config.to_json()), arrays,
-                                 device="cpu")
-    assert_renders_match(jax_render_view(jd, pose, colored=True),
-                         render_view(td, pose, colored=True), "dense, colored")
+    return jd, tsdf_volume_from_arrays(TSDFConfig.from_json(jd.config.to_json()), arrays,
+                                       device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["bricks", "dense"])
+def test_render_rays_matches_jax(scene, kind):
+    """render_rays takes a dense or brick volume as the JAX render_rays
+    does (packed here) and resolves its route like every entry point
+    (volume.resolve_use_kernel: the kernel on the card, the plain march on
+    the CPU, and use_kernel=True on the CPU raises). The render's
+    tolerances on the rays of one view, colors exact."""
+    jbv, tbv, pose, _ = scene
+    jv, tv = (jbv, tbv) if kind == "bricks" else _dense_pair(jbv)
+    origins, dirs = camera_rays(tbv.config, torch.tensor(pose, dtype=torch.float32))
+    with pytest.raises(ValueError, match="CUDA"):
+        render_rays(tv, origins, dirs, use_kernel=True)
+    rt = render_rays(tv, origins, dirs, colored=True)
+    rj = jax_render_rays(jv, jnp.asarray(origins.numpy()), jnp.asarray(dirs.numpy()),
+                         colored=True)
+    vj, vt = np.asarray(rj["valid"]), rt["valid"].numpy()
+    both = vj & vt
+    err = np.abs(np.asarray(rj["t_star"])[both] - rt["t_star"].numpy()[both])
+    nj = np.stack([np.asarray(rj[f"normal_{a}"]) for a in "xyz"], -1)
+    nt = np.stack([rt[f"normal_{a}"].numpy() for a in "xyz"], -1)
+    bn = np.asarray(rj["normal_valid"]) & rt["normal_valid"].numpy()
+    angle = np.degrees(np.arccos(np.clip((nj[bn] * nt[bn]).sum(-1), -1, 1)))
+    print(f"{kind}: {vj.sum()} valid, agreement {(vj == vt).mean():.6f}, t* error median "
+          f"{np.median(err):.3g}, normal angle median {np.median(angle):.3g} deg")
+    assert vj.sum() > 800 and (vj == vt).mean() > 0.97
+    assert np.median(err) < 1e-4 and np.median(angle) < 0.5
+    bc = np.asarray(rj["rgb_valid"]) & rt["rgb_valid"].numpy()
+    assert bc.sum() > 400
+    for c in ("rgb_r", "rgb_g", "rgb_b"):
+        np.testing.assert_array_equal(rt[c].numpy()[bc], np.asarray(rj[c])[bc])
 
 
 def test_render_downsample_matches_jax(scene):

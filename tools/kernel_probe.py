@@ -398,13 +398,13 @@ def main() -> int:
         fn = ctypes.CDLL(str(built[lib_name][0])).tsdf_raycast
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.POINTER(rk.RaycastParams)] + [ctypes.c_void_p] * 4
-                       + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+                       + [ctypes.c_int] + [ctypes.c_void_p] * 3)
         params = rk.raycast_params(packed, 512, tile)
 
         def run():
             _build.check(fn(ctypes.byref(params), packed.rd.data_ptr(),
                             packed.brick_map.data_ptr(), origins.data_ptr(), dirs.data_ptr(),
-                            N, out.data_ptr(), stream), lib_name)
+                            N, out.data_ptr(), None, stream), lib_name)
         return run
 
     assert rk.tile_width(cfg, N) == W
