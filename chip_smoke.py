@@ -56,6 +56,9 @@ Phases (any failure raises and exits non-zero before the last line):
      emission one an extraction); the volume must not overflow, the mesh
      must lie on the sphere and the views must be written; tsdf2mesh_main
      on the volume.npz must give the same triangles, vertices bit-equal; a
+     3-frame --sparse --brick-size 16 run (capacity 2^12: the same voxels)
+     must launch fusion 3 times and each MC kernel once, not overflow, mesh
+     on the sphere, and its tsdf2mesh must give the same mesh; a
      dense run of 3 frames (no --save-tsdf: the 512^3 dense npz is GBs)
      must mesh through the MC kernels, on the sphere; get_intrinsics_main
      on frame 0 must recover fx within 0.5. The per-frame means of the
@@ -81,12 +84,28 @@ Phases (any failure raises and exits non-zero before the last line):
      the volume-sharded relay, once a slab the rays cross); a 3-frame
      dense integrate_sharded at 512^3 must equal the single-device dense
      integrate on each slab. Per-frame and per-render times (host clock,
-     2 ranks on 1 card) go to a {"parallel": ...} line.
+     2 ranks on 1 card) go to a {"parallel": ...} line;
+ 10. the main path at other brick sizes: for bricks of 4, 16 and 32
+     (BRICK_SIZES: capacity and update budget; phases 2-6 are the 8^3
+     yardstick), make_brick_volume ->
+     integrate_bricks over every third pose of the orbit (16 frames) ->
+     extract_mesh -> render_view of the same 16 poses, with every kernel's
+     launch count zeroed just before and read just after (fusion one a
+     frame, the MC kernels one an extraction, the march one a render); no
+     overflow, the mesh on the sphere and a render's depth on it (medians
+     below half a cell); then each kernel against its plain version at that
+     brick size (fusion on the middle frame's update list within its
+     tolerances, the corner halo exact, the emission's triangles and cube
+     references exact and vertices within 1e-6, the ray march bit-equal),
+     with CUDA-event times and bounds. Frames/s, extraction ms, renders/s,
+     triangles and radius error go to a {"brick_sizes": ...} line, the
+     kernels' times to their records in the kernels line.
 
 Output: progress on stderr; on stdout the differentiable renders' numbers
 {"render_grad": {...}}, the CLI path's {"cli": {...}}, {"refine": {...}},
-{"parallel": {...}}, a line of kernel
-records {"kernels": [...]} (each with its launches on every path), the
+{"parallel": {...}}, {"brick_sizes": {...}}, a line of kernel
+records {"kernels": [...]} (each with its launches on every path and its
+times at the other brick sizes), the
 nvidia-smi line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -231,17 +250,64 @@ def record(name, source, replaces, launches, err, ms, plain_ms, nbytes, nops):
             "library_ms": None}
 
 
+def fusion_check(torch, fk, vol, rows, pose_inv, depth, rgb_t, n_ok, launches, timer):
+    """The fusion kernel against its plain version on one frame's update
+    list (rows) of vol, with color, on copies of vol's state: weight,
+    nsample and RGB color exact, sdf and M within 1e-5; CUDA-event times of
+    both. Returns the kernel's record, with the bound of the voxels the
+    frame observes beside the bound of every voxel of its live rows."""
+    cfg, B = vol.config, vol.brick_size
+    V = B ** 3
+    a = state_copy(vol) + [vol.color.clone()]
+    b = state_copy(vol) + [vol.color.clone()]
+    fk.fuse_bricks(cfg, rows, pose_inv, depth, *a, rgb_t)
+    fk.fuse_bricks_plain(cfg, rows, pose_inv, depth, *b, rgb_t)
+    for name, x, y in zip(("sdf", "weight", "M", "nsample", "color"), a, b):
+        if name in ("weight", "nsample", "color") and not torch.equal(x, y):
+            raise AssertionError(f"fusion kernel ({B}^3 bricks): {name} differs from the "
+                                 "plain engine")
+    if torch.equal(a[4], vol.color):
+        raise AssertionError("fusion kernel: the frame changed no color")
+    n_obs = int((a[3] - vol.nsample).sum())   # each observed voxel's nsample went up by 1
+    err = max(float((a[0] - b[0]).abs().max()), float((a[2] - b[2]).abs().max()))
+    if err > 1e-5:
+        raise AssertionError(f"fusion kernel ({B}^3 bricks): sdf/M err {err}")
+    t_k = timer.ms(lambda: fk.fuse_bricks(cfg, rows, pose_inv, depth, *a, rgb_t), spin=True)
+    t_p = timer.ms(lambda: fk.fuse_bricks_plain(cfg, rows, pose_inv, depth, *b, rgb_t),
+                   spin=True)
+    H, W = cfg.image_height, cfg.image_width
+    nc = vol.color.shape[-1]
+    # the bound: the observed voxels' state and color read and written once
+    # (whether a voxel is observed follows from its projection and the depth
+    # image alone, so an unobserved voxel's state need not be read), and
+    # every voxel of the live rows projected; beside it the kernel's own
+    # traffic, every voxel of every live row read
+    obs_bytes = fk.voxel_bytes(n_obs, H, W, nc)
+    rows_bytes = fk.bytes_moved(n_ok, H, W, nc, B)
+    rec = record("fusion", "cpu_tsdf_tpu_torch/csrc/fusion.cu",
+                 "cpu_tsdf_tpu/ops/pallas_fusion.py:363", launches, err, t_k, t_p, obs_bytes,
+                 fk.ops_needed(cfg, n_ok * V, n_obs))
+    rec["bound_rows_ms"] = rows_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"fusion with color ({B}^3 bricks): {n_ok} rows, kernel {t_k:.4f} ms, plain "
+        f"{t_p:.4f} ms, max err {err}; {n_obs} of {n_ok * V} voxels observed "
+        f"({n_obs / (n_ok * V):.4f}): bound {rec['bound_ms']:.5f} ms ({obs_bytes} bytes, "
+        f"{rec['bound_by']}); every voxel of the live rows {rec['bound_rows_ms']:.5f} ms "
+        f"({rows_bytes} bytes)")
+    return rec
+
+
 def mc_phase(torch, mc, vol, main_launches, timer):
     """Phase 4's MC part (see the module docstring); returns the records of
     the corner-halo and emission kernels."""
     import dataclasses
 
-    cfg = vol.config
+    B = vol.brick_size
+    V = B ** 3
     cand = mc._candidate_slots(vol, 0.5)
     K = int(cand.shape[0])
     count, cube, corners, ntri = mc.corner_halo(vol, cand, 0.5)
     pcount, pcube, pcorners, pntri = mc._corner_halo_plain(vol, cand, 0.5)
-    live = torch.arange(512, device=cand.device)[None] < count[:, None]
+    live = torch.arange(V, device=cand.device)[None] < count[:, None]
     n_cubes = int(count.sum())
     same = (torch.equal(count, pcount) and torch.equal(cube, pcube) and torch.equal(ntri, pntri)
             and torch.equal(corners[live], pcorners[live]))
@@ -253,14 +319,14 @@ def mc_phase(torch, mc, vol, main_launches, timer):
     t_p = timer.ms(lambda: mc._corner_halo_plain(vol, cand, 0.5), spin=True)
     halo = record("mc_corner_halo", "cpu_tsdf_tpu_torch/csrc/mc_corner_halo.cu",
                   "cpu_tsdf_tpu/ops/marching_cubes.py:695", main_launches["corner_halo"], err,
-                  t_k, t_p, mc.bytes_moved_corner_halo(K, n_cubes), K * 512 * 64)
+                  t_k, t_p, mc.bytes_moved_corner_halo(K, n_cubes, B), K * V * 64)
     # the former dense contract (every voxel's stack, ok and loc) as a yardstick
-    halo["bound_dense_ms"] = mc.bytes_moved_dense_stack(K) / HBM_BYTES_PER_S * 1e3
-    log(f"corner halo: {K} candidate bricks, {n_cubes} crossing cubes "
-        f"({n_cubes / (K * 512):.4f} of their cubes), {int(ntri.sum())} triangles, "
+    halo["bound_dense_ms"] = mc.bytes_moved_dense_stack(K, B) / HBM_BYTES_PER_S * 1e3
+    log(f"corner halo ({B}^3 bricks): {K} candidate bricks, {n_cubes} crossing cubes "
+        f"({n_cubes / (K * V):.4f} of their cubes), {int(ntri.sum())} triangles, "
         f"{int((count == 0).sum())} bricks without one; kernel {t_k:.4f} ms, plain "
         f"{t_p:.4f} ms; bound {halo['bound_ms']:.5f} ms "
-        f"({mc.bytes_moved_corner_halo(K, n_cubes)} bytes), dense-stack bound "
+        f"({mc.bytes_moved_corner_halo(K, n_cubes, B)} bytes), dense-stack bound "
         f"{halo['bound_dense_ms']:.5f} ms; exact")
 
     # the emission on the real cube list, with the volume's identity transform
@@ -294,8 +360,8 @@ def mc_phase(torch, mc, vol, main_launches, timer):
     emit = record("mc_emit", "cpu_tsdf_tpu_torch/csrc/mc_emit.cu",
                   "cpu_tsdf_tpu/ops/marching_cubes.py:631", main_launches["emit"], err, t_k, t_p,
                   mc.bytes_moved_emit(K, n_cubes, n_tri), n_tri * 105 + n_cubes * 17)
-    log(f"emission: {n_tri} triangles, kernel {t_k:.4f} ms, plain {t_p:.4f} ms; bound "
-        f"{emit['bound_ms']:.5f} ms ({mc.bytes_moved_emit(K, n_cubes, n_tri)} bytes)")
+    log(f"emission ({B}^3 bricks): {n_tri} triangles, kernel {t_k:.4f} ms, plain "
+        f"{t_p:.4f} ms; bound {emit['bound_ms']:.5f} ms ({mc.bytes_moved_emit(K, n_cubes, n_tri)} bytes)")
     return [halo, emit]
 
 
@@ -588,6 +654,7 @@ def cli_phase(torch, tmp):
     from cpu_tsdf_tpu_torch import cli
     from cpu_tsdf_tpu_torch.config import TSDFConfig
     from cpu_tsdf_tpu_torch.io import poses as pose_io
+    from cpu_tsdf_tpu_torch.io.checkpoint import checkpoint_meta
     from cpu_tsdf_tpu_torch.io.ply import load_ply
     from cpu_tsdf_tpu_torch.log import get_logger
     from cpu_tsdf_tpu_torch.ops import fusion_kernel as fk
@@ -673,6 +740,43 @@ def cli_phase(torch, tmp):
     if min(mc.launches.values()) < 1:
         raise AssertionError(f"tsdf2mesh did not run the MC kernels: {counts()}")
 
+    # a sparse run at bricks of 16^3 and its tsdf2mesh: the kernels at
+    # another brick size through the CLI (the capacity holds the same voxels)
+    out = os.path.join(tmp, "sparse16")
+    zero()
+    t0 = time.perf_counter()
+    rc = cli.integrate_main(base + ["--out", out, "--sparse", "--brick-size", "16",
+                                    "--brick-capacity", str(1 << 12), "--color", "--save-tsdf",
+                                    "--num-frames", str(CLI_DENSE_FRAMES)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    want = {"fusion": CLI_DENSE_FRAMES, "raycast": 0, "corner_halo": 1, "emit": 1}
+    npz = os.path.join(out, "volume.npz")
+    with np.load(npz) as z:
+        overflowed = bool(z["overflowed"])
+    brick = checkpoint_meta(npz)["brick_size"]
+    err, n_tri = sphere_error(os.path.join(out, "mesh.ply"), center, CLI_RADIUS)
+    zero()
+    rc2 = cli.tsdf2mesh_main([npz, os.path.join(tmp, "remesh16.ply")])
+    got2 = counts()
+    v1, f1, _ = load_ply(os.path.join(out, "mesh.ply"))
+    v2, f2, _ = load_ply(os.path.join(tmp, "remesh16.ply"))
+    res.update(brick16_frames=CLI_DENSE_FRAMES, brick16_wall_s=wall, brick16_triangles=n_tri,
+               brick16_median_radius_err_mm=err * 1e3, brick16_launches=got,
+               brick16_tsdf2mesh_launches=got2)
+    log(f"integrate --sparse --brick-size 16 ({CLI_DENSE_FRAMES} frames): rc {rc}, "
+        f"{wall:.3f} s wall; brick size in the npz {brick}, overflowed {overflowed}; {n_tri} "
+        f"triangles, median |r - {CLI_RADIUS}| {err * 1e3:.4f} mm; launches {got}; "
+        f"tsdf2mesh rc {rc2}, vertices bit-equal {np.array_equal(v1, v2)}, launches {got2}")
+    if rc != 0 or got != want or brick != 16 or overflowed:
+        raise AssertionError(f"integrate --brick-size 16: rc {rc}, launches {got}, want {want}")
+    if err >= HALF_CELL_M or n_tri < 1000:
+        raise AssertionError("integrate --brick-size 16: the mesh is off the sphere")
+    if rc2 != 0 or f1.shape != f2.shape or not np.array_equal(v1, v2) or \
+            got2 != {"fusion": 0, "raycast": 0, "corner_halo": 1, "emit": 1}:
+        raise AssertionError(f"tsdf2mesh of the 16^3 volume: rc {rc2}, launches {got2}")
+
     # a dense run: the MC kernels through from_dense
     out = os.path.join(tmp, "dense")
     metrics_path = os.path.join(tmp, "dense.json")
@@ -709,6 +813,105 @@ def cli_phase(torch, tmp):
     if rc != 0 or abs(fx - cfg.focal_length_x) >= 0.5:
         raise AssertionError("get-intrinsics did not recover fx")
     log(f"CLI path: {json.dumps(res)}")
+    return res
+
+
+# Phase 10: brick size -> (capacity, update budget). The capacity holds at
+# least the main path's 2^24 voxels (2^15 rows of 8^3); at 32^3 twice that,
+# since a sphere's band takes about 410 of those bricks (a 128^3 rehearsal
+# at the same brick width in meters). The budget bounds a frame's band
+# rows, and an eighth of it (at least 256) its carve rows: at 16^3 and
+# 32^3 it is the capacity, since 1024 rows overflowed at 16^3.
+BRICK_SIZES = {4: (1 << 18, 1 << 15), 16: (1 << 12, 1 << 12), 32: (1 << 10, 1 << 10)}
+BRICK_FRAMES = 16        # every third pose of the 48-pose orbit
+
+
+def brick_size_phase(torch, cfg, B, poses, depths, rgb, poses_h, timer):
+    """Phase 10 for bricks of B^3 (see the module docstring); returns its
+    numbers, with each kernel's record against its plain version."""
+    from cpu_tsdf_tpu_torch import bricks, make_brick_volume, pack_render, render_view
+    from cpu_tsdf_tpu_torch.geometry import rigid_inverse
+    from cpu_tsdf_tpu_torch.ops import fusion_kernel as fk
+    from cpu_tsdf_tpu_torch.ops import marching_cubes as mc
+    from cpu_tsdf_tpu_torch.ops import raycast_kernel as rk
+    from cpu_tsdf_tpu_torch.ops.raycast import camera_rays
+    from cpu_tsdf_tpu_torch.synthetic import sphere_depth_world
+
+    capacity, budget = BRICK_SIZES[B]
+    step = len(poses) // BRICK_FRAMES
+    frames = list(range(0, len(poses), step))[:BRICK_FRAMES]
+    vol = make_brick_volume(cfg, B, capacity, device=poses.device)
+    torch.cuda.synchronize()
+    fk.launches["fusion"] = rk.launches["raycast"] = 0
+    mc.launches.update(corner_halo=0, emit=0)
+    t0 = time.perf_counter()
+    for i in frames:
+        bricks.integrate_bricks(vol, depths[i], poses[i], rgb, budget)
+    torch.cuda.synchronize()
+    t_fuse = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    verts, faces, _ = mc.extract_mesh(vol, min_weight=0.5, color_by_rgb=True)
+    t_mesh = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    packed = pack_render(vol)
+    views = [render_view(packed, poses[i], colored=True) for i in frames]
+    torch.cuda.synchronize()
+    t_render = time.perf_counter() - t0
+    launches = {"fusion": fk.launches["fusion"], **mc.launches, "raycast": rk.launches["raycast"]}
+    n_live = int(vol.n_active)
+    radius_err = float(np.median(np.abs(np.linalg.norm(verts, axis=1) - 0.5)))
+    truth = sphere_depth_world(cfg, poses_h[frames[len(frames) // 2]], radius=0.5)
+    d = views[len(frames) // 2].depth.cpu().numpy()
+    both = ~np.isnan(d) & ~np.isnan(truth)
+    depth_err = float(np.median(np.abs(d[both] - truth[both])))
+    res = {"brick": B, "capacity": capacity, "update_budget": budget, "frames": len(frames),
+           "frames_per_s": len(frames) / t_fuse, "live_bricks": n_live,
+           "overflowed": bool(vol.overflowed), "triangles": len(faces),
+           "extract_ms_first": t_mesh * 1e3, "median_radius_err_mm": radius_err * 1e3,
+           "renders_per_s": len(frames) / t_render, "render_median_depth_err_mm": depth_err * 1e3,
+           "launches": launches}
+    log(f"bricks of {B}^3: {len(frames)} frames in {t_fuse:.3f} s = "
+        f"{res['frames_per_s']:.2f} frames/s (capacity {capacity}, budget {budget}); live "
+        f"bricks {n_live}; overflowed {res['overflowed']}; {len(faces)} triangles, "
+        f"extraction {t_mesh * 1e3:.2f} ms (first call, host clock, with the copy to the "
+        f"host); median |r-0.5| {radius_err * 1e3:.4f} mm; {len(frames)} colored renders in "
+        f"{t_render:.4f} s = {res['renders_per_s']:.2f} renders/s (one pack_render "
+        f"included), median depth error {depth_err * 1e3:.4f} mm; launches {launches}")
+    if res["overflowed"]:
+        raise AssertionError(f"bricks of {B}^3: the volume or a budget overflowed")
+    if len(faces) < 1000 or not np.isfinite(verts).all() or radius_err >= HALF_CELL_M:
+        raise AssertionError(f"bricks of {B}^3: bad mesh ({len(faces)} triangles, median "
+                             f"radius error {radius_err})")
+    if depth_err >= HALF_CELL_M:
+        raise AssertionError(f"bricks of {B}^3: rendered depth off the sphere ({depth_err})")
+    want = {"fusion": len(frames), "corner_halo": 1, "emit": 1, "raycast": len(frames)}
+    if launches != want:
+        raise AssertionError(f"bricks of {B}^3: launches {launches}, want {want}")
+    res["extract_ms"] = timer.ms(lambda: mc.extract_mesh(vol, 0.5, color_by_rgb=True))
+
+    # each kernel against its plain version at this brick size
+    i_mid = frames[len(frames) // 2]
+    pose_inv = rigid_inverse(poses[i_mid])
+    bx, by, bz, ok, slots, _ = bricks.frame_update_list(shadow(vol), depths[i_mid], pose_inv,
+                                                        budget)
+    rows = torch.stack([bx, by, bz, torch.where(ok, slots, -1)], 1).to(torch.int32).contiguous()
+    res["kernels"] = [fusion_check(torch, fk, vol, rows, pose_inv, depths[i_mid],
+                                   torch.trunc(rgb).contiguous(), int(ok.sum()),
+                                   launches["fusion"], timer)]
+    res["kernels"] += mc_phase(torch, mc, vol, launches, timer)
+    origins, dirs = (t.contiguous() for t in camera_rays(cfg, poses[i_mid]))
+    k = rk.march(packed, origins, dirs)
+    p = rk.march_plain(packed, origins, dirs)
+    if not torch.equal(k, p):
+        raise AssertionError(f"bricks of {B}^3: ray-march kernel differs from its plain version")
+    nbytes, nops = rk.march_work(packed, origins, dirs)
+    res["kernels"].append(record(
+        "raycast", "cpu_tsdf_tpu_torch/csrc/raycast.cu", "cpu_tsdf_tpu/ops/pallas_raycast.py:367",
+        launches["raycast"], 0.0, timer.ms(lambda: rk.march(packed, origins, dirs), spin=True),
+        timer.ms(lambda: rk.march_plain(packed, origins, dirs), reps=3, warmup=1, spin=True),
+        nbytes, nops))
+    log(f"bricks of {B}^3: ray march bit-equal to its plain version, kernel "
+        f"{res['kernels'][-1]['ms']:.4f} ms; kernel records {json.dumps(res['kernels'])}")
     return res
 
 
@@ -1149,41 +1352,8 @@ def main() -> int:
         f"triangle total)")
 
     # ---- phase 4: each kernel against its plain version -------------------
-    kernels = []
-    a = state_copy(vol) + [vol.color.clone()]
-    b = state_copy(vol) + [vol.color.clone()]
-    fk.fuse_bricks(cfg, rows, pose_inv, depths[i_mid], *a, rgb_t)
-    fk.fuse_bricks_plain(cfg, rows, pose_inv, depths[i_mid], *b, rgb_t)
-    for name, x, y in zip(("sdf", "weight", "M", "nsample", "color"), a, b):
-        if name in ("weight", "nsample", "color") and not torch.equal(x, y):
-            raise AssertionError(f"fusion kernel: {name} differs from the plain engine")
-    if torch.equal(a[4], vol.color):
-        raise AssertionError("fusion kernel: the frame changed no color")
-    n_obs = int((a[3] - vol.nsample).sum())   # each observed voxel's nsample went up by 1
-    err = max(float((a[0] - b[0]).abs().max()), float((a[2] - b[2]).abs().max()))
-    if err > 1e-5:
-        raise AssertionError(f"fusion kernel: sdf/M err {err}")
-    t_k = timer.ms(lambda: fk.fuse_bricks(cfg, rows, pose_inv, depths[i_mid], *a, rgb_t),
-                   spin=True)
-    t_p = timer.ms(lambda: fk.fuse_bricks_plain(cfg, rows, pose_inv, depths[i_mid], *b, rgb_t),
-                   spin=True)
-    H, W = cfg.image_height, cfg.image_width
-    nc = vol.color.shape[-1]
-    kernels.append(record("fusion", "cpu_tsdf_tpu_torch/csrc/fusion.cu",
-                          "cpu_tsdf_tpu/ops/pallas_fusion.py:363", main_launches["fusion"],
-                          err, t_k, t_p, fk.bytes_moved(n_ok, H, W, nc),
-                          n_ok * 512 * (fk.OPS_PER_VOXEL
-                                        + fk.COLOR_OPS_PER_VOXEL[cfg.color_mode])))
-    # the bound counts every voxel of a live row; the observed ones are all
-    # the function needs
-    obs_bytes = fk.voxel_bytes(n_obs, H, W, nc)
-    kernels[-1]["bound_observed_ms"] = obs_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"fusion with color: {n_ok} rows, kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-        f"max err {err}; bound {kernels[-1]['bound_ms']:.5f} ms "
-        f"({fk.bytes_moved(n_ok, H, W, nc)} bytes); {n_obs} of {n_ok * 512} voxels "
-        f"observed ({n_obs / (n_ok * 512):.4f}): bound of those "
-        f"{kernels[-1]['bound_observed_ms']:.5f} ms ({obs_bytes} bytes)")
-
+    kernels = [fusion_check(torch, fk, vol, rows, pose_inv, depths[i_mid], rgb_t, n_ok,
+                            main_launches["fusion"], timer)]
     kernels += mc_phase(torch, mc, vol, main_launches, timer)
 
     # ---- phase 5: whole-path parity, kernels vs plain engine --------------
@@ -1221,12 +1391,24 @@ def main() -> int:
     # ---- phase 9: the sharded paths, 2 ranks sharing the card --------------
     par = parallel_phase(torch, cfg)
     par["card"] = smi
+
+    # ---- phase 10: the main path at other brick sizes ----------------------
+    sizes = {B: brick_size_phase(torch, cfg, B, poses, depths, rgb, poses_h, timer)
+             for B in BRICK_SIZES}
+    for res in sizes.values():
+        res["card"] = smi
+    b16, b16_mesh = cli_numbers["brick16_launches"], cli_numbers["brick16_tsdf2mesh_launches"]
     on_paths = {"fusion": {"main": main_launches["fusion"], "cli": cli_numbers["launches"]["fusion"],
+                           "cli_brick_16": b16["fusion"],
                            "parallel_per_rank": par["launches_per_rank"]["fusion"]},
                 "mc_corner_halo": {"main": main_launches["corner_halo"],
                                    "cli": cli_numbers["launches"]["corner_halo"],
+                                   "cli_brick_16": b16["corner_halo"],
+                                   "cli_brick_16_tsdf2mesh": b16_mesh["corner_halo"],
                                    "parallel_per_rank": par["launches_per_rank"]["corner_halo"]},
                 "mc_emit": {"main": main_launches["emit"], "cli": cli_numbers["launches"]["emit"],
+                            "cli_brick_16": b16["emit"],
+                            "cli_brick_16_tsdf2mesh": b16_mesh["emit"],
                             "parallel_per_rank": par["launches_per_rank"]["emit"]},
                 "raycast": {"main": kernels[-1]["launches"],
                             "cli": cli_numbers["launches"]["raycast"],
@@ -1235,11 +1417,20 @@ def main() -> int:
                                if k.startswith("raycast_")}}}
     for k in kernels:
         k["launches_on_paths"] = on_paths[k["name"]]
+        for B, res in sizes.items():
+            at_b = next(r for r in res["kernels"] if r["name"] == k["name"])
+            k["launches_on_paths"][f"brick_{B}"] = at_b["launches"]
+            k.setdefault("brick_sizes", {})[str(B)] = {
+                key: at_b[key] for key in ("launches", "max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by", "bound_rows_ms")
+                if key in at_b}
 
     print(json.dumps({"render_grad": render_grad}))
     print(json.dumps({"cli": cli_numbers}))
     print(json.dumps({"refine": refine_numbers}))
     print(json.dumps({"parallel": par}))
+    print(json.dumps({"brick_sizes": {str(B): {k: v for k, v in res.items() if k != "kernels"}
+                                      for B, res in sizes.items()}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
-"""Block-sparse brick volume: fusion into allocated 8^3 bricks.
+"""Block-sparse brick volume: fusion into allocated B^3 bricks.
 
 Port of ``cpu_tsdf_tpu.bricks`` (the TPU package's octree replacement,
 SURVEY §7):
 
-  * the volume is divided into B^3-voxel bricks (default B=8);
+  * the volume is divided into B^3-voxel bricks (default B=8; the CUDA
+    kernels take every even B);
   * ``brick_map`` int32 [Bx,By,Bz]: brick coord -> slot id, -1 = unallocated
     (unallocated == the reference's unobserved coarse leaf: d=-1, w=0);
   * ``sdf/weight/M/nsample`` [C, B^3]: one row per slot, voxel order
@@ -437,13 +438,11 @@ def fuse_brick_batch(cfg: TSDFConfig, B: int, bx, by, bz, slot_ok, slots,
 
     bx/by/bz [K] are brick-grid coords (they fix world positions); rows with
     slot_ok False write nothing. With use_kernel the update goes through the
-    kernel wrapper (csrc/fusion.cu on the card; B must be 8), else through
-    the plain engine; either way the engine also updates the color rows
-    (RGB / RGBNormalized / LAB) when color and rgb are given."""
+    kernel wrapper (csrc/fusion.cu on the card, for any even brick size B),
+    else through the plain engine; either way the engine also updates the
+    color rows (RGB / RGBNormalized / LAB) when color and rgb are given."""
     from .ops.fusion_kernel import fuse_bricks, fuse_bricks_plain
 
-    if use_kernel and B != 8:
-        raise ValueError("the fusion kernel takes 8^3 bricks only")
     color_active = color is not None and rgb is not None
     if color_active:
         # trunc mirrors the reference's uint8 color observations

@@ -8,17 +8,24 @@
 // fuse_bricks_plain (the JAX package's xla_update branch, bricks.py:531-559,
 // ops/fusion.py:91-138 and ops/color.py::update_color).
 //
-// Launch: one block per row of the frame's update list (band candidates,
-// then carve slots), kVoxels / kVoxelsPerThread threads; thread t owns
-// voxels t*V .. t*V+V-1 of the 8^3 brick (voxel order (lx*8+ly)*8+lz). A row
-// is (bx, by, bz, slot); slot < 0 marks a row without a brick, which returns
-// at once and writes nothing (not even to the dump row C-1). Rows of one
-// frame name distinct slots (band and carve lists are disjoint, the
-// allocator hands out unique rows), so blocks never write the same voxel.
+// Launch: the rows' voxels are cut into groups of kVoxelsPerThread = 4
+// consecutive voxels of one brick of B^3 (voxel order (lx*B+ly)*B+lz, the
+// order of convert.soa_inner and the checkpoint layout), G = B^3 / 4 groups
+// a row, and thread g of the launch takes group g mod G of row g / G, in
+// blocks of kThreads. B is any even size, so B^3 is a multiple of 8 and a
+// group never crosses a row: at B = 8 a block is one row (as the TPU
+// kernel's grid step is), at B = 2 and 4 a block takes 64 and 8 rows so no
+// thread idles, at B = 16 and 32 a row takes 8 and 64 blocks. Powers of two
+// split a group index with shifts and masks; other B (6, 10, ...) divide
+// once a thread (the voxels of a group follow by increments). A row is
+// (bx, by, bz, slot); slot < 0 marks a row without a brick, whose threads
+// write nothing (not even to the dump row C-1). Rows of one frame name
+// distinct slots (band and carve lists are disjoint, the allocator hands
+// out unique rows), so threads never write the same voxel.
 //
-// Bound: device memory. Each live row reads and writes its 512 voxels of
-// sdf/weight/M/nsample (16 KiB) and of color (nc floats a voxel each way)
-// once; with 4 voxels a thread these are 16-byte loads and stores. The
+// Bound: device memory. Each live row reads and writes its B^3 voxels of
+// sdf/weight/M/nsample (32 B a voxel) and of color (nc floats a voxel each
+// way) once; with 4 voxels a thread these are 16-byte loads and stores. The
 // depth image (and rgb) is read by projection, which is a gather; it is
 // 1.2 MB (3.7 MB) at 640x480 and stays in the 50 MB L2. So that a thread
 // waits for memory once rather than three times, the pose is read once per
@@ -66,9 +73,20 @@ struct FusionParams {
   int color_mode;                      // kNone, kRGB, kRGBNormalized, kLAB
 };
 
-constexpr int kVoxels = 512;  // 8^3
 constexpr int kVoxelsPerThread = 4;  // one float4 / int4 of each state field
-constexpr int kThreads = kVoxels / kVoxelsPerThread;
+constexpr int kThreads = 128;
+
+// How a group index splits into (row, voxel): by shifts and masks when B is
+// a power of two, by division otherwise (the layout is a template
+// parameter, chosen at launch, as in raycast.cu).
+enum Layout : int { kPow2 = 0, kDiv = 1 };
+
+struct Brick {
+  int b;            // B
+  int shift;        // log2(B) for kPow2
+  int group_shift;  // log2(B^3 / 4) for kPow2
+  int groups;       // B^3 / 4
+};
 
 enum ColorMode : int { kNone = 0, kRGB = 1, kRGBNormalized = 2, kLAB = 3 };
 
@@ -204,9 +222,9 @@ __device__ __forceinline__ bool fuse_voxel(const FusionParams& p, const Projecti
   return true;
 }
 
-template <int CM>
+template <int L, int CM>
 __global__ void __launch_bounds__(kThreads)
-fuse_kernel(FusionParams p, const int4* __restrict__ rows,
+fuse_kernel(FusionParams p, Brick br, long long n_groups, const int4* __restrict__ rows,
             const float* __restrict__ pose,  // pose_inv rows 0..2, 12 floats
             const float* __restrict__ depth, const float* __restrict__ rgb,
             float* __restrict__ sdf, float* __restrict__ weight,
@@ -216,33 +234,71 @@ fuse_kernel(FusionParams p, const int4* __restrict__ rows,
   constexpr int NC = Color<CM>::nc;
   constexpr int NCV = NC > 0 ? NC * V : 1;
   __shared__ float m[12];
-  const int4 row = rows[blockIdx.x];
-  if (row.w < 0) return;  // the whole block: before the barrier
   const int t = threadIdx.x;
   if (t < 12) m[t] = pose[t];
-  const size_t at = (size_t)row.w * kVoxels + t * V;
+  const long long gid = (long long)blockIdx.x * kThreads + t;
+  long long ri = 0;  // the row
+  int gi = 0;        // the group within it
+  if (L == kPow2) {
+    ri = gid >> br.group_shift;
+    gi = (int)(gid & (br.groups - 1));
+  } else {
+    ri = gid / br.groups;
+    gi = (int)(gid - ri * br.groups);
+  }
+  int4 row = make_int4(0, 0, 0, -1);
+  if (gid < n_groups) row = rows[ri];
+  const bool live = row.w >= 0;
+  const int v0 = gi * V;
+  const size_t at = (size_t)row.w * (size_t)(br.groups * V) + v0;
 
   // the state first: it does not depend on the projection
-  const float4 d4 = *reinterpret_cast<const float4*>(sdf + at);
-  const float4 w4 = *reinterpret_cast<const float4*>(weight + at);
-  const float4 m4 = *reinterpret_cast<const float4*>(M + at);
-  const int4 n4 = *reinterpret_cast<const int4*>(nsample + at);
-  float d[V] = {d4.x, d4.y, d4.z, d4.w}, w[V] = {w4.x, w4.y, w4.z, w4.w};
-  float Mv[V] = {m4.x, m4.y, m4.z, m4.w}, c[NCV];
-  int n[V] = {n4.x, n4.y, n4.z, n4.w};
+  float4 d4 = make_float4(0.f, 0.f, 0.f, 0.f), w4 = d4, m4 = d4;
+  int4 n4 = make_int4(0, 0, 0, 0);
+  float c[NCV];
+  if (live) {
+    d4 = *reinterpret_cast<const float4*>(sdf + at);
+    w4 = *reinterpret_cast<const float4*>(weight + at);
+    m4 = *reinterpret_cast<const float4*>(M + at);
+    n4 = *reinterpret_cast<const int4*>(nsample + at);
 #pragma unroll
-  for (int k = 0; k < NC; ++k) {
-    const float4 c4 = reinterpret_cast<const float4*>(color + at * NC)[k];
-    c[4 * k] = c4.x; c[4 * k + 1] = c4.y; c[4 * k + 2] = c4.z; c[4 * k + 3] = c4.w;
+    for (int k = 0; k < NC; ++k) {
+      const float4 c4 = reinterpret_cast<const float4*>(color + at * NC)[k];
+      c[4 * k] = c4.x; c[4 * k + 1] = c4.y; c[4 * k + 2] = c4.z; c[4 * k + 3] = c4.w;
+    }
   }
-  __syncthreads();
+  __syncthreads();  // the pose
+  if (!live) return;
+  float d[V] = {d4.x, d4.y, d4.z, d4.w}, w[V] = {w4.x, w4.y, w4.z, w4.w};
+  float Mv[V] = {m4.x, m4.y, m4.z, m4.w};
+  int n[V] = {n4.x, n4.y, n4.z, n4.w};
 
-  // a thread's voxels share lx and ly, so their x and y terms are computed once
-  const int gx = row.x * 8 + ((t * V) >> 6), gy = row.y * 8 + (((t * V) >> 3) & 7);
+  // the group's first voxel (lx, ly, lz); the next ones follow in z, then
+  // y, then x (at B = 2 and 6 a group crosses a z run)
+  int lx, ly, lz;
+  if (L == kPow2) {
+    lx = v0 >> (2 * br.shift);
+    ly = (v0 >> br.shift) & (br.b - 1);
+    lz = v0 & (br.b - 1);
+  } else {
+    const int q = v0 / br.b;
+    lz = v0 - q * br.b;
+    lx = q / br.b;
+    ly = q - lx * br.b;
+  }
   Projection o[V];
   float z[V], r[V], g[V], b[V];
 #pragma unroll
-  for (int k = 0; k < V; ++k) o[k] = project(p, m, gx, gy, row.z * 8 + ((t * V + k) & 7));
+  for (int k = 0; k < V; ++k) {
+    o[k] = project(p, m, row.x * br.b + lx, row.y * br.b + ly, row.z * br.b + lz);
+    if (++lz == br.b) {
+      lz = 0;
+      if (++ly == br.b) {
+        ly = 0;
+        ++lx;
+      }
+    }
+  }
   // the depth and rgb pixels of all V voxels, loaded together
 #pragma unroll
   for (int k = 0; k < V; ++k) {
@@ -273,26 +329,41 @@ fuse_kernel(FusionParams p, const int4* __restrict__ rows,
 }
 
 // color and rgb are null when color_mode is kNone. Every state pointer must
-// be 16-byte aligned (read and written as float4 / int4).
+// be 16-byte aligned (read and written as float4 / int4); brick is the even
+// brick size B.
 extern "C" int tsdf_fuse_bricks(const FusionParams* params, const void* rows,
-                                int n_rows, const void* pose, const void* depth,
-                                const void* rgb, void* sdf, void* weight,
-                                void* M, void* nsample, void* color,
+                                int n_rows, int brick, const void* pose,
+                                const void* depth, const void* rgb, void* sdf,
+                                void* weight, void* M, void* nsample, void* color,
                                 void* stream) {
   if (n_rows > 0) {
     const FusionParams& p = *params;
     cudaStream_t s = (cudaStream_t)stream;
-#define TSDF_FUSE(CM)                                                              \
-  fuse_kernel<CM><<<n_rows, kThreads, 0, s>>>(                                     \
-      p, (const int4*)rows, (const float*)pose, (const float*)depth,               \
+    Brick br;
+    br.b = brick;
+    br.groups = brick * brick * brick / kVoxelsPerThread;
+    br.shift = br.group_shift = -1;
+    for (int k = 0; k < 31; ++k) {
+      if ((1 << k) == brick) br.shift = k;
+      if ((1 << k) == br.groups) br.group_shift = k;
+    }
+    const long long n_groups = (long long)n_rows * br.groups;
+    const unsigned n_blocks = (unsigned)((n_groups + kThreads - 1) / kThreads);
+#define TSDF_FUSE(L, CM)                                                          \
+  fuse_kernel<L, CM><<<n_blocks, kThreads, 0, s>>>(                               \
+      p, br, n_groups, (const int4*)rows, (const float*)pose, (const float*)depth, \
       (const float*)rgb, (float*)sdf, (float*)weight, (float*)M, (int*)nsample,    \
       (float*)color)
+#define TSDF_FUSE_LAYOUT(CM)                      \
+  if (br.shift >= 0) TSDF_FUSE(kPow2, CM);        \
+  else TSDF_FUSE(kDiv, CM)
     switch (p.color_mode) {
-      case kRGB: TSDF_FUSE(kRGB); break;
-      case kRGBNormalized: TSDF_FUSE(kRGBNormalized); break;
-      case kLAB: TSDF_FUSE(kLAB); break;
-      default: TSDF_FUSE(kNone); break;
+      case kRGB: TSDF_FUSE_LAYOUT(kRGB); break;
+      case kRGBNormalized: TSDF_FUSE_LAYOUT(kRGBNormalized); break;
+      case kLAB: TSDF_FUSE_LAYOUT(kLAB); break;
+      default: TSDF_FUSE_LAYOUT(kNone); break;
     }
+#undef TSDF_FUSE_LAYOUT
 #undef TSDF_FUSE
   }
   return (int)cudaGetLastError();

@@ -8,58 +8,71 @@
 // _corner_stacks, marching_cubes.py:480-597, and the cube filter at
 // :749-770).
 //
-// Launch: one block per candidate brick, 128 threads, so that 12 bricks (at
-// 40 registers) are resident on an SM: a block's life is mostly a chain of
-// dependent loads (slot, coords, brick map, rows), and more bricks in
-// flight hide more of it (128 threads measured faster than 256 and 512;
-// PERF.md). Loads, all issued before the block's first barrier: each
-// thread reads one 16-byte group of the brick's own d and w rows (as soon
-// as the slot is known to be in range) and one or two halo cells of the
-// seven +1 neighbours (the +x face is the neighbour's first 64 contiguous
-// floats, the +y face 8 runs of 8, the +z face, the three edges and the
-// corner scalars), each looking its neighbour's slot up in brick_map. A
-// neighbour that is unallocated or outside the grid reads d = -1, w = 0
-// (unobserved); a dead slot (negative, >= C, or coords -1) reads that
-// everywhere and has no cube. Then thread t takes the cubes whose lower
-// corners are voxels t + 128 i, i = 0..3, and applies the filter:
+// Launch: one block per candidate brick of B^3 voxels, B any even size,
+// taken at run time (struct Brick, set up by brick_for): as in fusion.cu,
+// powers of two split a cube index with shifts and masks (the kPow2
+// layout), other B (6, 10, ...) by division (kDiv). A block has kThreads
+// = 128 threads (32 and 64 for the 8 and 64 cubes of B = 2 and 4), so that
+// at B = 8 twelve bricks are resident on an SM: a block's life is mostly
+// a chain of dependent loads (slot, coords, brick map, rows), and more
+// bricks in flight hide more of it (128 threads measured faster than 256
+// and 512 at B = 8; PERF.md). From B = 16 on a block has 128 threads for
+// every 8 of B, at most kMaxThreads (256 at 16, 512 from 32 on): a
+// sphere's extraction has ~500 bricks of 16^3 and ~100 of 32^3, too few
+// blocks of 128 to fill 132 SMs (on an H100 at 32^3, 0.169 ms with 128
+// threads, 0.087 with 512; PERF.md). A dead slot (negative, >= C, or
+// coords -1) has no cube and returns after writing an empty table. The
+// block walks its brick in x-slabs of `slab` layers of cubes: the
+// (slab+1) x (B+1) x (B+1) corner halo of a slab, sdf and weight, is
+// staged in dynamic shared memory, as many layers as fit kHaloBudget and
+// at least one. Up to B = 16 one slab is the whole brick (the 17^3 halo of
+// B = 16 is 39,304 B); at B = 32 the 33^3 halo (287,496 B) exceeds a
+// block's 227 KB, so it goes in 8 slabs of 4 layers (43,560 B each). Past
+// B = 118 two halo layers alone exceed 227 KB and the launch function
+// refuses the brick size (kBrickTooLarge). Loads, all issued before the
+// slab's barrier, kBatch a thread in flight at once: the own rows' layers
+// of the slab as 16-byte groups (4
+// consecutive voxels; B^2 is a multiple of 4, so a slab's layers are whole
+// groups), and the cells of the seven +1 neighbours (the +x face, the +y
+// and +z faces, the three edges and the corner), each looking its
+// neighbour's slot up in brick_map. A neighbour that is unallocated or
+// outside the grid reads d = -1, w = 0 (unobserved). Then thread t takes
+// the slab's cubes t + threads * i and applies the filter:
 //   every corner w >= min_weight and |d| < 1, a sign change (some d < 0 and
 //   some d >= 0), and the lower corner interior, 1 <= v < res-1 per axis.
-// A warp ballot a round and a scan over the 16 (round, warp) counts give
-// each crossing cube its rank r in voxel order, and only crossing cubes are
+// A warp ballot a round and a scan over the slab's (round, warp) counts,
+// after the earlier slabs' total, give each crossing cube its rank r in
+// voxel order (slabs are runs of voxel order), and only crossing cubes are
 // written (their corners and cube index taken again from the halo):
 //   count[k]         the number of crossing cubes of the brick;
-//   cube[k][r]       (cubeindex << 9) | voxel, -1 from count[k] on; bit i of
-//                    the PCL cubeindex is set iff corner i's d * scale < 0
-//                    (scale = max_dist_neg: the sign of the value in meters,
-//                    as the emission's case-table lookup sees it);
+//   cube[k][r]       cubeindex * B^3 + voxel, -1 from count[k] on (at B = 8
+//                    (cubeindex << 9) | voxel); bit i of the PCL cubeindex
+//                    is set iff corner i's d * scale < 0 (scale =
+//                    max_dist_neg: the sign of the value in meters, as the
+//                    emission's case-table lookup sees it);
 //   corners[k][r][c] normalized d of corner c in PCL order
 //                    (mc_tables.CORNER_OFFSETS); rows >= count[k] unwritten;
 //   ntri[k]          the sum of TRI_COUNT[cubeindex] over the crossing cubes.
 //
-// Bound: device memory. Per brick 729 x 2 x 4 B of halo read, 2 KB of cube
-// table written, 32 B of corners per crossing cube (about 8 % of the cubes
-// on a fused scan) and 8 B of counts. The former dense stack (512 x 8 floats
-// plus ok and loc a brick, about four fifths of the traffic) is gone: it
-// existed because a TPU core cannot scatter.
+// Bound: device memory. Per brick (B+1)^3 x 2 x 4 B of halo read, 4 B^3 B
+// of cube table written, 32 B of corners per crossing cube (about 8 % of
+// the cubes on a fused scan at B = 8) and 8 B of counts. The former dense
+// stack (B^3 x 8 floats plus ok and loc a brick, about four fifths of the
+// traffic) is gone: it existed because a TPU core cannot scatter.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-constexpr int kVoxels = 512;
-constexpr int kHalo = 9 * 9 * 9;
-
-// CORNER_OFFSETS (PCL): corner i at (x, y, z) = ((i&1)^((i>>1)&1), (i>>2)&1, (i>>1)&1)
-__constant__ int kCornerHalo[8] = {
-    0,              // (0,0,0)
-    81,             // (1,0,0)
-    81 + 1,         // (1,0,1)
-    1,              // (0,0,1)
-    9,              // (0,1,0)
-    81 + 9,         // (1,1,0)
-    81 + 9 + 1,     // (1,1,1)
-    9 + 1,          // (0,1,1)
-};
+constexpr int kThreads = 128;
+constexpr int kMaxThreads = 512;
+// At least 3 blocks of kMaxThreads an SM: at most 40 registers a thread,
+// so that at B = 8 twelve blocks of 128 threads are resident (ptxas gives
+// 57 without the bound, and 8 blocks fit).
+constexpr int kMinBlocks = 3;
+constexpr int kBatch = 2;               // loads a thread keeps in flight before it stores them
+constexpr int kHaloBudget = 44 * 1024;  // shared bytes of a slab's halo, unless one layer needs more
+constexpr int kBrickTooLarge = -1;      // returned when two halo layers do not fit a block
 
 // mc_tables.TRI_COUNT: triangles of each cubeindex (held equal to the
 // Python table by tests/test_torch_marching_cubes.py).
@@ -74,188 +87,294 @@ __constant__ unsigned char kTriCount[256] = {
     3, 4, 4, 5, 4, 5, 3, 4, 4, 5, 5, 2, 3, 4, 2, 1, 2, 3, 3, 2, 3, 4, 2, 1, 3, 2, 4, 1, 2, 1, 1, 0,
 };
 
-// Halo cell j (0..216) beyond the own brick: the +1 neighbour it lies in
-// (index (bx<<2)|(by<<1)|bz), its voxel in that neighbour's row, and its
-// index in the 9^3 halo.
-__device__ __forceinline__ void halo_cell(int j, int& nb, int& src, int& h) {
-  if (j < 64) {                       // +x face: x = 0 of the neighbour, contiguous
-    nb = 4; src = j; h = 8 * 81 + j + (j >> 3);
-  } else if (j < 128) {               // +y face: y = 0, 8 runs of 8
-    const int i = j - 64, x = i >> 3, z = i & 7;
-    nb = 2; src = x * 64 + z; h = x * 81 + 8 * 9 + z;
-  } else if (j < 192) {               // +z face: z = 0
-    const int i = j - 128, x = i >> 3, y = i & 7;
-    nb = 1; src = x * 64 + y * 8; h = x * 81 + y * 9 + 8;
-  } else if (j < 200) {               // +x+y edge
-    const int z = j - 192;
-    nb = 6; src = z; h = 8 * 81 + 8 * 9 + z;
-  } else if (j < 208) {               // +x+z edge
-    const int y = j - 200;
-    nb = 5; src = y * 8; h = 8 * 81 + y * 9 + 8;
-  } else if (j < 216) {               // +y+z edge
-    const int x = j - 208;
-    nb = 3; src = x * 64; h = x * 81 + 8 * 9 + 8;
-  } else {                            // +x+y+z corner
-    nb = 7; src = 0; h = kHalo - 1;
+// How a cube index splits into (x, y, z): by shifts and masks when B is a
+// power of two, by division otherwise (the layout is a template parameter,
+// chosen at launch, as in fusion.cu and raycast.cu).
+enum Layout : int { kPow2 = 0, kDiv = 1 };
+
+// The sizes of a brick of B^3 voxels and of the block that takes it.
+struct Brick {
+  int b;        // B
+  int shift;    // log2(B) for kPow2, else -1
+  int threads;  // a block
+  int slab;     // cube layers of a slab
+  int rounds;   // of a slab's cubes, a thread
+  int entries;  // (round, warp) ballots of a slab
+};
+
+static Brick brick_for(int B) {
+  Brick br;
+  br.b = B;
+  br.shift = -1;
+  for (int k = 0; k < 31; ++k)
+    if ((1 << k) == B) br.shift = k;
+  const int V = B * B * B, plane = (B + 1) * (B + 1);
+  // kThreads, fewer for the cubes of B = 2 and 4, and kThreads for every 8
+  // of B from B = 16 on, where a brick has 8x the cubes and the bricks are
+  // too few to fill the card
+  const int wide = kThreads * (B >= 16 ? B / 8 : 1);
+  br.threads = V < kThreads ? (V > 32 ? 64 : 32) : (wide < kMaxThreads ? wide : kMaxThreads);
+  const int fit = kHaloBudget / (plane * 2 * 4) - 1;
+  br.slab = fit < 1 ? 1 : (fit < B ? fit : B);
+  br.rounds = (br.slab * B * B + br.threads - 1) / br.threads;
+  br.entries = br.rounds * (br.threads / 32);
+  return br;
+}
+
+// Dynamic shared memory of a block: the slab's halo of sdf and weight, the
+// ballots, their scan and the triangle total.
+static size_t shared_bytes(const Brick& br) {
+  const size_t plane = (size_t)(br.b + 1) * (br.b + 1);
+  return (2 * (br.slab + 1) * plane + 2 * br.entries + 2) * 4;
+}
+
+// (x, y, z) of cube c of a run of whole x-layers of B^2 cubes
+template <int L>
+__device__ __forceinline__ void split(const Brick& br, int c, int& lx, int& ly, int& lz) {
+  if (L == kPow2) {
+    lx = c >> (2 * br.shift);
+    ly = (c >> br.shift) & (br.b - 1);
+    lz = c & (br.b - 1);
+  } else {
+    const int q = c / br.b;
+    lz = c - q * br.b;
+    lx = q / br.b;
+    ly = q - lx * br.b;
   }
 }
 
-// Thread t of the block takes the cubes of voxels t + 128 i, i = 0..3.
-constexpr int kThreads = 128;
-constexpr int kRounds = kVoxels / kThreads;
-constexpr int kWarps = kThreads / 32;
-constexpr int kOwnLoads = (2 * kVoxels / 4 + kThreads - 1) / kThreads;  // 16-byte groups
-constexpr int kHaloLoads = (kHalo - kVoxels + kThreads - 1) / kThreads;
+// halo offset of corner q (PCL: x = (q&1)^((q>>1)&1), y = (q>>2)&1, z = (q>>1)&1)
+__device__ __forceinline__ int corner(int q, int P, int PP) {
+  return ((q ^ (q >> 1)) & 1) * PP + ((q >> 2) & 1) * P + ((q >> 1) & 1);
+}
 
-__global__ void __launch_bounds__(kThreads)
-corner_halo_kernel(const float* __restrict__ sdf, const float* __restrict__ weight,
+template <int L>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+corner_halo_kernel(Brick br, const float* __restrict__ sdf, const float* __restrict__ weight,
                    const int* __restrict__ brick_map, const int* __restrict__ coords,
                    const int* __restrict__ slots, int C, int nbx, int nby, int nbz,
                    int xres, int yres, int zres, float min_weight, float scale,
                    int* __restrict__ count_out, int* __restrict__ cube_out,
                    float* __restrict__ corners_out, int* __restrict__ ntri_out) {
-  __shared__ float hd[kHalo];
-  __shared__ float hw[kHalo];
-  __shared__ int warp_cnt[kRounds * kWarps];  // index round * kWarps + warp: voxel order
-  __shared__ int warp_tri[kRounds * kWarps];
+  const int B = br.b, NT = br.threads, BB = B * B, V = BB * B, P = B + 1, PP = P * P;
+  const int halo = (br.slab + 1) * PP;
+  extern __shared__ float smem[];
+  float* hd = smem;
+  float* hw = hd + halo;
+  unsigned* ballots = reinterpret_cast<unsigned*>(hw + halo);  // round * warps + warp: voxel order
+  int* before = reinterpret_cast<int*>(ballots + br.entries);  // exclusive scan of their counts
+  int* tri_total = before + br.entries + 1;
 
   const int k = blockIdx.x;
   const int t = threadIdx.x;
+  const size_t row = (size_t)k * V;
   const int slot = slots[k];
-  const bool in_range = slot >= 0 && slot < C;
-  // the own rows (16-byte group q < 128 of d, then of w) are read as soon
-  // as the slot is known to be in range; a slot with coords -1 is dead and
-  // its rows are replaced below
-  float4 own[kOwnLoads];
-#pragma unroll
-  for (int m = 0; m < kOwnLoads; ++m) {
-    const int q = t + m * kThreads;
-    own[m] = q < 128 ? make_float4(-1.f, -1.f, -1.f, -1.f) : make_float4(0.f, 0.f, 0.f, 0.f);
-    if (in_range && q < 256)
-      own[m] = reinterpret_cast<const float4*>((q < 128 ? sdf : weight) +
-                                               (size_t)slot * kVoxels)[q & 127];
+  const bool live = slot >= 0 && slot < C && coords[3 * slot] >= 0;
+  if (!live) {  // uniform across the block
+    for (int v = t; v < V; v += NT) cube_out[row + v] = -1;
+    if (t == 0) count_out[k] = ntri_out[k] = 0;
+    return;
   }
-  const bool live = in_range && coords[3 * slot] >= 0;
-  int bcx = 0, bcy = 0, bcz = 0;
-  if (live) {
-    bcx = coords[3 * slot];
-    bcy = coords[3 * slot + 1];
-    bcz = coords[3 * slot + 2];
-  }
+  const int bcx = coords[3 * slot], bcy = coords[3 * slot + 1], bcz = coords[3 * slot + 2];
+  if (t == 0) *tri_total = 0;
+  const int lane = t & 31, warp = t >> 5, warps = NT >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  int total = 0, tris = 0;
+
+  for (int x0 = 0; x0 < B; x0 += br.slab) {
+    const int layers = B - x0 < br.slab ? B - x0 : br.slab;  // cube layers of the slab
+    const bool last = x0 + layers == B;
+    const int own_layers = last ? layers : layers + 1;        // halo layers with x < B
+    const int own_groups = own_layers * BB / 4;
+    // the own rows: group q of the slab holds voxels x0 B^2 + 4q .. + 3
+    const int n_own = 2 * own_groups;
+    for (int q0 = t; q0 < n_own; q0 += kBatch * NT) {
+      float4 v4[kBatch];
 #pragma unroll
-  for (int m = 0; m < kHaloLoads; ++m) {  // 217 halo cells
-    const int j = t + m * kThreads;
-    if (j >= kHalo - kVoxels) break;
-    int nb, src, h;
-    halo_cell(j, nb, src, h);
-    float d = -1.0f, w = 0.0f;
-    if (live) {
-      const int nx = bcx + ((nb >> 2) & 1), ny = bcy + ((nb >> 1) & 1), nz = bcz + (nb & 1);
-      if (nx < nbx && ny < nby && nz < nbz) {
-        const int s = brick_map[(nx * nby + ny) * nbz + nz];
-        if (s >= 0) {
-          d = sdf[(size_t)s * kVoxels + src];
-          w = weight[(size_t)s * kVoxels + src];
+      for (int u = 0; u < kBatch; ++u) {
+        const int q = q0 + u * NT;
+        if (q < n_own)
+          v4[u] = reinterpret_cast<const float4*>((q < own_groups ? sdf : weight) +
+                                                  (size_t)slot * V + x0 * BB)[q < own_groups ? q : q - own_groups];
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int q = q0 + u * NT;
+        if (q < n_own) {
+          float* dst = q < own_groups ? hd : hw;
+          const float e[4] = {v4[u].x, v4[u].y, v4[u].z, v4[u].w};
+          int lx, ly, lz;  // slab-local voxel
+          split<L>(br, 4 * (q < own_groups ? q : q - own_groups), lx, ly, lz);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            dst[(lx * P + ly) * P + lz] = e[j];
+            if (++lz == B) {
+              lz = 0;
+              if (++ly == B) {
+                ly = 0;
+                ++lx;
+              }
+            }
+          }
         }
       }
     }
-    hd[h] = d;
-    hw[h] = w;
-  }
+    // the neighbours' cells: for each halo layer below x = B, the 2B+1
+    // cells with y = B or z = B; in the last slab the +x face
+    const int n_edge = own_layers * (2 * B + 1);
+    const int n_nbr = n_edge + (last ? PP : 0);
+    for (int j0 = t; j0 < n_nbr; j0 += kBatch * NT) {
+      int h[kBatch], at[kBatch], cell[kBatch];
 #pragma unroll
-  for (int m = 0; m < kOwnLoads; ++m) {
-    // group g of a row holds voxels 4g..4g+3 = (x, y, z0..z0+3)
-    const int q = t + m * kThreads, g = q & 127;
-    if (q >= 256) break;
-    float* dst = (q < 128 ? hd : hw) + (g >> 4) * 81 + ((g >> 1) & 7) * 9 + (g & 1) * 4;
-    const float4 v = live ? own[m] : (q < 128 ? make_float4(-1.f, -1.f, -1.f, -1.f)
-                                              : make_float4(0.f, 0.f, 0.f, 0.f));
-    dst[0] = v.x;
-    dst[1] = v.y;
-    dst[2] = v.z;
-    dst[3] = v.w;
-  }
-  __syncthreads();
-
-  const int lane = t & 31, warp = t >> 5;
-  unsigned ballot[kRounds];
+      for (int u = 0; u < kBatch; ++u) {
+        const int j = j0 + u * NT;
+        h[u] = at[u] = cell[u] = -1;
+        if (j < n_nbr) {
+          int hx, ly, lz;
+          if (j < n_edge) {
+            hx = j / (2 * B + 1);
+            const int i = j - hx * (2 * B + 1);
+            ly = i < P ? B : i - P;
+            lz = i < P ? i : B;
+          } else {
+            const int f = j - n_edge;
+            hx = layers;
+            ly = f / P;
+            lz = f - ly * P;
+          }
+          const int lx = x0 + hx;
+          const int bx = lx == B, by = ly == B, bz = lz == B;
+          const int nx = bcx + bx, ny = bcy + by, nz = bcz + bz;
+          h[u] = (hx * P + ly) * P + lz;
+          at[u] = ((bx ? 0 : lx) * B + (by ? 0 : ly)) * B + (bz ? 0 : lz);
+          if (nx < nbx && ny < nby && nz < nbz) cell[u] = (nx * nby + ny) * nbz + nz;
+        }
+      }
+      int s[kBatch];
 #pragma unroll
-  for (int i = 0; i < kRounds; ++i) {
-    const int v = t + kThreads * i;
-    const int lx = v >> 6, ly = (v >> 3) & 7, lz = v & 7;
-    const int h0 = (lx * 9 + ly) * 9 + lz;
-    bool corners_ok = true, neg = false, pos = false;
-    int cubeindex = 0;
+      for (int u = 0; u < kBatch; ++u) s[u] = cell[u] >= 0 ? brick_map[cell[u]] : -1;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const float d = hd[h0 + kCornerHalo[c]];
-      const float w = hw[h0 + kCornerHalo[c]];
-      corners_ok = corners_ok && w >= min_weight && fabsf(d) < 1.0f;
-      neg = neg || d < 0.0f;
-      pos = pos || d >= 0.0f;
-      cubeindex |= (d * scale < 0.0f ? 1 : 0) << c;
+      for (int u = 0; u < kBatch; ++u) {
+        float dv = -1.0f, wv = 0.0f;
+        if (s[u] >= 0) {
+          const size_t src = (size_t)s[u] * V + at[u];
+          dv = sdf[src];
+          wv = weight[src];
+        }
+        if (h[u] >= 0) {
+          hd[h[u]] = dv;
+          hw[h[u]] = wv;
+        }
+      }
     }
-    const int vx = bcx * 8 + lx, vy = bcy * 8 + ly, vz = bcz * 8 + lz;
-    const bool interior = vx >= 1 && vx < xres - 1 && vy >= 1 && vy < yres - 1 &&
-                          vz >= 1 && vz < zres - 1;
-    const bool ok = live && corners_ok && neg && pos && interior;
-    ballot[i] = __ballot_sync(0xffffffffu, ok);
-    const unsigned tris = __reduce_add_sync(0xffffffffu, ok ? (unsigned)kTriCount[cubeindex] : 0u);
-    if (lane == 0) {
-      warp_cnt[i * kWarps + warp] = __popc(ballot[i]);
-      warp_tri[i * kWarps + warp] = (int)tris;
-    }
-  }
-  __syncthreads();
+    __syncthreads();
 
-  int total = 0;
-#pragma unroll
-  for (int g = 0; g < kRounds * kWarps; ++g) total += warp_cnt[g];
-  const size_t row = (size_t)k * kVoxels;
-  const unsigned below = (1u << lane) - 1u;
-#pragma unroll
-  for (int i = 0; i < kRounds; ++i) {
-    const int v = t + kThreads * i;
-    if ((ballot[i] >> lane) & 1u) {
-      int before = 0;
-      for (int g = 0; g < i * kWarps + warp; ++g) before += warp_cnt[g];
-      const size_t r = row + before + __popc(ballot[i] & below);
-      const int h0 = ((v >> 6) * 9 + ((v >> 3) & 7)) * 9 + (v & 7);
-      float dc[8];
+    const int n_cubes = layers * BB;
+#pragma unroll 4
+    for (int i = 0; i < br.rounds; ++i) {
+      const int c = t + NT * i;  // slab-local cube
+      int lx, ly, lz;
+      split<L>(br, c, lx, ly, lz);
+      const int h0 = (lx * P + ly) * P + lz;
+      bool corners_ok = true, neg = false, pos = false;
       int cubeindex = 0;
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        dc[c] = hd[h0 + kCornerHalo[c]];
-        cubeindex |= (dc[c] * scale < 0.0f ? 1 : 0) << c;
+      for (int q = 0; q < 8; ++q) {
+        const float d = c < n_cubes ? hd[h0 + corner(q, P, PP)] : 0.0f;
+        const float w = c < n_cubes ? hw[h0 + corner(q, P, PP)] : 0.0f;
+        corners_ok = corners_ok && w >= min_weight && fabsf(d) < 1.0f;
+        neg = neg || d < 0.0f;
+        pos = pos || d >= 0.0f;
+        cubeindex |= (d * scale < 0.0f ? 1 : 0) << q;
       }
-      cube_out[r] = (cubeindex << 9) | v;
-      float4* out = reinterpret_cast<float4*>(corners_out + r * 8);
-      out[0] = make_float4(dc[0], dc[1], dc[2], dc[3]);
-      out[1] = make_float4(dc[4], dc[5], dc[6], dc[7]);
+      const int vx = bcx * B + x0 + lx, vy = bcy * B + ly, vz = bcz * B + lz;
+      const bool interior = vx >= 1 && vx < xres - 1 && vy >= 1 && vy < yres - 1 &&
+                            vz >= 1 && vz < zres - 1;
+      const bool ok = c < n_cubes && corners_ok && neg && pos && interior;
+      const unsigned ballot = __ballot_sync(0xffffffffu, ok);
+      const unsigned nt = __reduce_add_sync(0xffffffffu, ok ? (unsigned)kTriCount[cubeindex] : 0u);
+      if (lane == 0) {
+        ballots[i * warps + warp] = ballot;
+        tris += (int)nt;
+      }
     }
-    if (v >= total) cube_out[row + v] = -1;
-  }
-  if (t == 0) {
-    int tris = 0;
+    __syncthreads();
+    if (warp == 0) {  // exclusive scan of the slab's (round, warp) counts
+      int carry = 0;
+      for (int e0 = 0; e0 < br.entries; e0 += 32) {
+        const int e = e0 + lane;
+        const int n = e < br.entries ? __popc(ballots[e]) : 0;
+        int incl = n;
 #pragma unroll
-    for (int g = 0; g < kRounds * kWarps; ++g) tris += warp_tri[g];
+        for (int off = 1; off < 32; off <<= 1) {
+          const int y = __shfl_up_sync(0xffffffffu, incl, off);
+          if (lane >= off) incl += y;
+        }
+        if (e < br.entries) before[e] = carry + incl - n;
+        carry += __shfl_sync(0xffffffffu, incl, 31);
+      }
+      if (lane == 0) before[br.entries] = carry;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int i = 0; i < br.rounds; ++i) {
+      const unsigned ballot = ballots[i * warps + warp];
+      if ((ballot >> lane) & 1u) {
+        const int c = t + NT * i;
+        const size_t r = row + total + before[i * warps + warp] + __popc(ballot & below);
+        int lx, ly, lz;
+        split<L>(br, c, lx, ly, lz);
+        const int h0 = (lx * P + ly) * P + lz;
+        float dc[8];
+        int cubeindex = 0;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          dc[q] = hd[h0 + corner(q, P, PP)];
+          cubeindex |= (dc[q] * scale < 0.0f ? 1 : 0) << q;
+        }
+        cube_out[r] = cubeindex * V + x0 * BB + c;
+        float4* out = reinterpret_cast<float4*>(corners_out + r * 8);
+        out[0] = make_float4(dc[0], dc[1], dc[2], dc[3]);
+        out[1] = make_float4(dc[4], dc[5], dc[6], dc[7]);
+      }
+    }
+    total += before[br.entries];
+    __syncthreads();  // the next slab reuses the halo, the ballots and the scan
+  }
+  for (int v = total + t; v < V; v += NT) cube_out[row + v] = -1;
+  if (lane == 0) atomicAdd(tri_total, tris);
+  __syncthreads();
+  if (t == 0) {
     count_out[k] = total;
-    ntri_out[k] = tris;
+    ntri_out[k] = *tri_total;
   }
 }
 
+// brick is the even brick size B. Returns kBrickTooLarge, and launches
+// nothing, where a block's shared memory would exceed the card's (B > 118
+// on an H100); else the CUDA error code of the launch.
 extern "C" int tsdf_corner_halo(const void* sdf, const void* weight,
                                 const void* brick_map, const void* coords,
-                                const void* slots, int n_slots, int C, int nbx,
-                                int nby, int nbz, int xres, int yres, int zres,
+                                const void* slots, int n_slots, int brick, int C,
+                                int nbx, int nby, int nbz, int xres, int yres, int zres,
                                 float min_weight, float scale, void* count,
                                 void* cube, void* corners, void* ntri, void* stream) {
+  if (brick < 2 || brick % 2) return (int)cudaErrorInvalidValue;
+  const Brick br = brick_for(brick);
+  const size_t smem = shared_bytes(br);
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (smem > (size_t)optin) return kBrickTooLarge;
   if (n_slots > 0) {
-    corner_halo_kernel<<<n_slots, kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)sdf, (const float*)weight, (const int*)brick_map,
-        (const int*)coords, (const int*)slots, C, nbx, nby, nbz, xres, yres,
-        zres, min_weight, scale, (int*)count, (int*)cube, (float*)corners,
-        (int*)ntri);
+    auto kernel = br.shift >= 0 ? corner_halo_kernel<kPow2> : corner_halo_kernel<kDiv>;
+    if (smem > 48 * 1024)
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    kernel<<<n_slots, br.threads, smem, (cudaStream_t)stream>>>(
+        br, (const float*)sdf, (const float*)weight, (const int*)brick_map,
+        (const int*)coords, (const int*)slots, C, nbx, nby, nbz, xres, yres, zres,
+        min_weight, scale, (int*)count, (int*)cube, (float*)corners, (int*)ntri);
   }
   return (int)cudaGetLastError();
 }

@@ -7,26 +7,34 @@
 // :605-628). Its plain version, and the contract, is
 // cpu_tsdf_tpu_torch/ops/marching_cubes.py::_emit_plain.
 //
-// Launch: one block per candidate brick k, 128 threads, over the brick's
-// count[k] crossing cubes in chunks of 128 (rank order; a brick of a fused
-// scan has ~40 crossing cubes and few have more than 128, and the launch
-// lasts as long as its slowest brick); the first chunk's loads are issued
-// together. Thread r reads its cube's code ((cubeindex << 9) | voxel; -1
-// past count[k]) and 8 corners, scales the corners by max_dist_neg and
-// takes its triangle count and edge ids from the packed case table. A
-// warp-shuffle scan, then one over the 4 warp sums, gives each thread its
-// first triangle within the
-// chunk: that scan is the stable compaction of the [cube, slot] mask that
-// the TPU built and packed left, with no mask. Each triangle's 3 vertices
-// are interpolated on their edges as _edge_points does (PCL
-// interpolateEdge: mu = (0 - v1) / (v2 - v1), 0.5 where v2 == v1, on the
-// voxel-centre lattice) and passed through global_transform as
-// transform_points does, with the same float32 operations in the same
-// order (the library builds with --fmad=false), so the vertices equal the
-// plain version's bit for bit. The chunk's triangles are staged in shared
-// memory and leave as one contiguous run at tri_off[k] + the chunk's base:
-// vertices [T, 3, 3] and tri_cube[t] = slot * 512 + voxel, coalesced 4-byte
-// stores (a triangle is 36 B, so its start is 4-byte aligned only).
+// Launch: one block per candidate brick k of B^3 voxels (B any even size,
+// taken at run time; powers of two decode a cube code with shifts, other B
+// by division, as in mc_corner_halo.cu), kThreads = 128 threads (32 and 64
+// for the 8 and 64 cubes of B = 2 and 4), over the brick's count[k]
+// crossing cubes in chunks of a block's width (rank order; a brick of a
+// fused scan at B = 8 has ~40 crossing cubes and few have more than 128,
+// and the launch lasts as long as its slowest brick; at B = 32 a brick has
+// ~830, 7 chunks in turn, and a wider block's stage would pass 48 KB of
+// shared memory; the stage is sized by the block at launch, so that 64
+// threads at B = 4 hold half the shared memory and twice the blocks fit an
+// SM); the first chunk's loads are issued together. Thread r
+// reads its cube's code (cubeindex * B^3 + voxel; -1 past count[k]) and 8
+// corners, scales the corners by max_dist_neg and takes its triangle
+// count and edge ids from the packed case table. A
+// warp-shuffle scan, then one over the warp sums, gives each thread its
+// first triangle within the chunk: that scan is the stable compaction of
+// the [cube, slot] mask that the TPU built and packed left, with no mask.
+// Each triangle's 3 vertices are interpolated on their edges as
+// _edge_points does (PCL interpolateEdge: mu = (0 - v1) / (v2 - v1), 0.5
+// where v2 == v1, on the voxel-centre lattice) and passed through
+// global_transform as transform_points does, with the same float32
+// operations in the same order (the library builds with --fmad=false), so
+// the vertices equal the plain version's bit for bit. The chunk's
+// triangles are staged in shared memory and leave as one contiguous run at
+// tri_off[k] + the chunk's base: vertices [T, 3, 3] and tri_cube[t] =
+// slot * B^3 + voxel (int32: the wrapper refuses capacity * B^3 >= 2^31),
+// coalesced 4-byte stores (a triangle is 36 B, so its start is 4-byte
+// aligned only).
 //
 // Bound: device memory. 36 B read per crossing cube (code and corners),
 // 40 B written per triangle, a few words per brick; the case table stays in
@@ -38,9 +46,19 @@
 #include <stdint.h>
 
 constexpr int kThreads = 128;
-constexpr int kVoxels = 512;
-constexpr int kMaxTris = 5;                  // mc_tables.MAX_TRIS_PER_CUBE
-constexpr int kStage = kThreads * kMaxTris;  // triangles of one chunk at most
+constexpr int kMaxTris = 5;  // mc_tables.MAX_TRIS_PER_CUBE
+
+// How a cube code splits into (cubeindex, x, y, z): by shifts and masks
+// when B is a power of two, by division otherwise (the layout is a
+// template parameter, chosen at launch).
+enum Layout : int { kPow2 = 0, kDiv = 1 };
+
+// A brick of B^3 voxels and the block that takes it.
+struct Brick {
+  int b;        // B
+  int shift;    // log2(B) for kPow2, else -1
+  int threads;  // a block: kThreads, fewer where a brick has fewer cubes
+};
 
 // mc_tables.TRI_TABLE and TRI_COUNT packed a cubeindex a word: bits
 // 12i+4j..12i+4j+3 hold the edge of vertex j of triangle i, bits 60-63 the
@@ -152,16 +170,40 @@ __device__ __forceinline__ void edge_vertex(int e, const float (&v)[8], const fl
   }
 }
 
+// code = cubeindex * B^3 + voxel -> cubeindex and the voxel's (x, y, z)
+template <int L>
+__device__ __forceinline__ int decode(const Brick& br, int code, int (&l)[3]) {
+  const int B = br.b;
+  int cubeindex, voxel;
+  if (L == kPow2) {
+    cubeindex = code >> (3 * br.shift);
+    voxel = code & (B * B * B - 1);
+    l[0] = voxel >> (2 * br.shift);
+    l[1] = (voxel >> br.shift) & (B - 1);
+    l[2] = voxel & (B - 1);
+  } else {
+    cubeindex = code / (B * B * B);
+    voxel = code - cubeindex * (B * B * B);
+    const int q = voxel / B;
+    l[2] = voxel - q * B;
+    l[0] = q / B;
+    l[1] = q - l[0] * B;
+  }
+  return cubeindex;
+}
+
+template <int L>
 __global__ void __launch_bounds__(kThreads)
-emit_kernel(const int* __restrict__ slots, const int* __restrict__ coords,
+emit_kernel(Brick br, const int* __restrict__ slots, const int* __restrict__ coords,
             const int* __restrict__ count, const int* __restrict__ cube,
             const float* __restrict__ corners, const int* __restrict__ tri_off,
             const float* __restrict__ transform, EmitGrid g,
             float* __restrict__ verts, int* __restrict__ tri_cube) {
+  const int NT = br.threads, B = br.b, V = B * B * B;
   __shared__ float m[12];
   __shared__ int warp_sum[kThreads / 32];
-  __shared__ float st_v[kStage * 9];
-  __shared__ int st_c[kStage];
+  extern __shared__ float st_v[];                            // [NT * kMaxTris * 9]
+  int* st_c = reinterpret_cast<int*>(st_v + NT * kMaxTris * 9);  // [NT * kMaxTris]
 
   const int k = blockIdx.x;
   const int t = threadIdx.x;
@@ -169,22 +211,23 @@ emit_kernel(const int* __restrict__ slots, const int* __restrict__ coords,
   // table is -1 from count on, so a code says whether its row is live), the
   // slot and the triangle offset
   const int n = count[k];
-  int code = cube[(size_t)k * kVoxels + t];
+  int code = t < V ? cube[(size_t)k * V + t] : -1;
   const int slot = slots[k];
   int base = tri_off[k];
   if (n == 0) return;  // uniform across the block
   if (t < 12) m[t] = transform[t];
-  const int b0[3] = {coords[3 * slot] * 8, coords[3 * slot + 1] * 8, coords[3 * slot + 2] * 8};
+  const int b0[3] = {coords[3 * slot] * B, coords[3 * slot + 1] * B, coords[3 * slot + 2] * B};
   const int lane = t & 31, warp = t >> 5;
 
-  for (int r0 = 0; r0 < n; r0 += kThreads) {
-    const int r = r0 + t;  // < 512: r0 < n <= 512 and r0 is a multiple of kThreads
-    if (r0 > 0) code = cube[(size_t)k * kVoxels + r];
+  for (int r0 = 0; r0 < n; r0 += NT) {
+    const int r = r0 + t;  // past B^3 where NT does not divide it
+    if (r0 > 0) code = r < V ? cube[(size_t)k * V + r] : -1;
     unsigned long long tri_row = 0ull;
     float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+    int l[3] = {0, 0, 0};
     if (code >= 0) {
-      tri_row = __ldg(&kTriRows[code >> 9]);
-      const float4* src = reinterpret_cast<const float4*>(corners + ((size_t)k * kVoxels + r) * 8);
+      tri_row = __ldg(&kTriRows[decode<L>(br, code, l)]);
+      const float4* src = reinterpret_cast<const float4*>(corners + ((size_t)k * V + r) * 8);
       lo = src[0];
       hi = src[1];
     }
@@ -200,7 +243,7 @@ emit_kernel(const int* __restrict__ slots, const int* __restrict__ coords,
     int first = incl - nt, total = 0;
 #pragma unroll
     for (int w = 0; w < kThreads / 32; ++w) {
-      const int s = warp_sum[w];
+      const int s = w < (NT >> 5) ? warp_sum[w] : 0;
       first += w < warp ? s : 0;
       total += s;
     }
@@ -208,12 +251,10 @@ emit_kernel(const int* __restrict__ slots, const int* __restrict__ coords,
     if (nt > 0) {
       const float v[8] = {lo.x * g.scale, lo.y * g.scale, lo.z * g.scale, lo.w * g.scale,
                           hi.x * g.scale, hi.y * g.scale, hi.z * g.scale, hi.w * g.scale};
-      const int voxel = code & (kVoxels - 1);
-      const int vox[3] = {b0[0] + (voxel >> 6), b0[1] + ((voxel >> 3) & 7), b0[2] + (voxel & 7)};
       float ctr[3];  // voxel_center: (i + 0.5) * cell - size / 2
 #pragma unroll
-      for (int x = 0; x < 3; ++x) ctr[x] = ((float)vox[x] + 0.5f) * g.cell[x] - g.half[x];
-      const int ref = slot * kVoxels + voxel;
+      for (int x = 0; x < 3; ++x) ctr[x] = ((float)(b0[x] + l[x]) + 0.5f) * g.cell[x] - g.half[x];
+      const int ref = slot * V + (l[0] * B + l[1]) * B + l[2];
       for (int i = 0; i < nt; ++i) {
         float out[9];
 #pragma unroll
@@ -233,17 +274,19 @@ emit_kernel(const int* __restrict__ slots, const int* __restrict__ coords,
     }
     __syncthreads();
     float* dv = verts + (size_t)base * 9;
-    for (int f = t; f < total * 9; f += kThreads) dv[f] = st_v[f];
-    for (int f = t; f < total; f += kThreads) tri_cube[base + f] = st_c[f];
+    for (int f = t; f < total * 9; f += NT) dv[f] = st_v[f];
+    for (int f = t; f < total; f += NT) tri_cube[base + f] = st_c[f];
     base += total;
     __syncthreads();  // the next chunk reuses warp_sum and the stage
   }
 }
 
+// brick is the even brick size B.
 extern "C" int tsdf_mc_emit(const void* slots, const void* coords, const void* count,
                             const void* cube, const void* corners, const void* tri_off,
-                            const void* transform, int n_slots, const float* grid,
+                            const void* transform, int n_slots, int brick, const float* grid,
                             void* verts, void* tri_cube, void* stream) {
+  if (brick < 2 || brick % 2) return (int)cudaErrorInvalidValue;
   if (n_slots > 0) {
     EmitGrid g;
     for (int x = 0; x < 3; ++x) {
@@ -251,8 +294,18 @@ extern "C" int tsdf_mc_emit(const void* slots, const void* coords, const void* c
       g.half[x] = grid[3 + x];
     }
     g.scale = grid[6];
-    emit_kernel<<<n_slots, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int*)slots, (const int*)coords, (const int*)count, (const int*)cube,
+    Brick br;
+    br.b = brick;
+    br.shift = -1;
+    for (int k = 0; k < 31; ++k)
+      if ((1 << k) == brick) br.shift = k;
+    const int V = brick * brick * brick;
+    br.threads = V >= kThreads ? kThreads : (V > 32 ? 64 : 32);
+    auto kernel = br.shift >= 0 ? emit_kernel<kPow2> : emit_kernel<kDiv>;
+    // the stage: the triangles of one chunk at most
+    const size_t stage = (size_t)br.threads * kMaxTris * 10 * 4;
+    kernel<<<n_slots, br.threads, stage, (cudaStream_t)stream>>>(
+        br, (const int*)slots, (const int*)coords, (const int*)count, (const int*)cube,
         (const float*)corners, (const int*)tri_off, (const float*)transform, g,
         (float*)verts, (int*)tri_cube);
   }

@@ -12,8 +12,8 @@ launches the kernel.
 
 The update list ``rows`` is int32 [K, 4]: the brick coordinates (bx, by,
 bz) and the slot of each row, with slot -1 for a row that names no brick.
-State rows are [C, 512] (8^3 bricks, the voxel order (lx*8+ly)*8+lz), color
-rows [C, 512, nc].
+State rows are [C, B^3] (bricks of any even size B, the voxel order
+(lx*B+ly)*B+lz), color rows [C, B^3, nc].
 """
 
 from __future__ import annotations
@@ -69,6 +69,14 @@ def fusion_params(cfg: TSDFConfig, color: bool) -> FusionParams:
         int(cfg.weight_by_variance), COLOR_CODES[cfg.color_mode] if color else 0)
 
 
+def brick_size_of(rows_width: int) -> int:
+    """The brick size B of state rows [C, B^3]."""
+    B = round(rows_width ** (1 / 3))
+    if B ** 3 != rows_width:
+        raise ValueError(f"state rows of {rows_width} voxels are not a cube")
+    return B
+
+
 def _voxel_centers(cfg: TSDFConfig, rows, B: int):
     """Voxel indices and centers [K, B^3] of the update list's bricks."""
     lid = torch.arange(B ** 3, dtype=torch.int32, device=rows.device)
@@ -89,7 +97,7 @@ def fuse_bricks_plain(cfg: TSDFConfig, rows, pose_inv, depth, sdf, weight, M,
     Rows without a slot read and rewrite the dump row C-1 unchanged (their
     voxels are all invalid), which keeps the scatter free of a host sync."""
     C, V = sdf.shape
-    B = round(V ** (1 / 3))
+    B = brick_size_of(V)
     slot_ok = rows[:, 3] >= 0
     dst = torch.where(slot_ok, rows[:, 3], C - 1).long()
     (vx, vy, vz), (cx, cy, cz) = _voxel_centers(cfg, rows, B)
@@ -120,20 +128,26 @@ def fuse_bricks(cfg: TSDFConfig, rows, pose_inv, depth, sdf, weight, M, nsample,
 
     rows int32 [K, 4] (bx, by, bz, slot or -1); pose_inv float32 [4, 4]
     (volume -> camera); depth float32 [H, W] (NaN = missing); sdf/weight/M
-    float32 and nsample int32, all [C, 512]; color float32 [C, 512, nc] and
-    rgb float32 [H, W, 3], already truncated, both or neither. With both,
-    the color rows are updated too (cfg.color_mode).
+    float32 and nsample int32, all [C, B^3] for bricks of B^3 voxels;
+    color float32 [C, B^3, nc] and rgb float32 [H, W, 3], already
+    truncated, both or neither. With both, the color rows are updated too
+    (cfg.color_mode).
 
     On CPU tensors this is :func:`fuse_bricks_plain`; on CUDA tensors it
-    launches csrc/fusion.cu and raises on anything the kernel does not
-    take."""
+    launches csrc/fusion.cu, which takes every even B (a thread's 4 voxels
+    are one 16-byte access, so B^3 must be a multiple of 4, as the TPU
+    kernel's [C, 4, B^3/4] rows are), and raises on anything the kernel
+    does not take."""
     if sdf.device.type == "cpu":
         fuse_bricks_plain(cfg, rows, pose_inv, depth, sdf, weight, M, nsample, color, rgb)
         return
     from .._build import check, check_tensor, function, stream_ptr
 
     dev = sdf.device
-    C = sdf.shape[0]
+    C, V = sdf.shape
+    B = brick_size_of(V)
+    if B % 2:
+        raise ValueError(f"fuse_bricks: the kernel takes even brick sizes, got {B}")
     H, W = cfg.image_height, cfg.image_width
     with_color = color is not None and rgb is not None
     if with_color and cfg.color_mode not in COLOR_CODES:
@@ -142,12 +156,12 @@ def fuse_bricks(cfg: TSDFConfig, rows, pose_inv, depth, sdf, weight, M, nsample,
     checks = [("rows", rows, torch.int32, (rows.shape[0], 4)),
               ("pose_inv", pose_inv, torch.float32, (4, 4)),
               ("depth", depth, torch.float32, (H, W)),
-              ("sdf", sdf, torch.float32, (C, 512)),
-              ("weight", weight, torch.float32, (C, 512)),
-              ("M", M, torch.float32, (C, 512)),
-              ("nsample", nsample, torch.int32, (C, 512))]
+              ("sdf", sdf, torch.float32, (C, V)),
+              ("weight", weight, torch.float32, (C, V)),
+              ("M", M, torch.float32, (C, V)),
+              ("nsample", nsample, torch.int32, (C, V))]
     if with_color:
-        checks += [("color", color, torch.float32, (C, 512, nc)),
+        checks += [("color", color, torch.float32, (C, V, nc)),
                    ("rgb", rgb, torch.float32, (H, W, 3))]
     for what, t, dt, shape in checks:
         check_tensor(f"fuse_bricks: {what}", t, dt, shape, dev)
@@ -159,10 +173,10 @@ def fuse_bricks(cfg: TSDFConfig, rows, pose_inv, depth, sdf, weight, M, nsample,
     K = rows.shape[0]
     pose12 = pose_inv[:3].contiguous()
     fn = function("fusion", "tsdf_fuse_bricks",
-                  [ctypes.POINTER(FusionParams), ctypes.c_void_p, ctypes.c_int]
-                  + [ctypes.c_void_p] * 9)
+                  [ctypes.POINTER(FusionParams), ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int] + [ctypes.c_void_p] * 9)
     params = fusion_params(cfg, with_color)
-    err = fn(ctypes.byref(params), rows.data_ptr(), K, pose12.data_ptr(),
+    err = fn(ctypes.byref(params), rows.data_ptr(), K, B, pose12.data_ptr(),
              depth.data_ptr(), rgb.data_ptr() if with_color else None,
              sdf.data_ptr(), weight.data_ptr(), M.data_ptr(), nsample.data_ptr(),
              color.data_ptr() if with_color else None, stream_ptr(dev))
@@ -170,12 +184,12 @@ def fuse_bricks(cfg: TSDFConfig, rows, pose_inv, depth, sdf, weight, M, nsample,
     launches["fusion"] += 1
 
 
-def bytes_moved(n_live_rows: int, H: int, W: int, nc: int) -> int:
-    """Device-memory traffic of one fuse_bricks call: each live row's 4
-    state fields read and written once (16 KiB), the depth image read once,
-    and with nc > 0 color channels each live row's color read and written
-    once and the rgb image read once."""
-    return voxel_bytes(n_live_rows * 512, H, W, nc)
+def bytes_moved(n_live_rows: int, H: int, W: int, nc: int, B: int = 8) -> int:
+    """Device-memory traffic of one fuse_bricks call on bricks of B^3
+    voxels: each live row's 4 state fields read and written once (32 B a
+    voxel), the depth image read once, and with nc > 0 color channels each
+    live row's color read and written once and the rgb image read once."""
+    return voxel_bytes(n_live_rows * B ** 3, H, W, nc)
 
 
 def voxel_bytes(n_voxels: int, H: int, W: int, nc: int) -> int:
@@ -189,9 +203,23 @@ def voxel_bytes(n_voxels: int, H: int, W: int, nc: int) -> int:
     return b
 
 
-# Float32 operations per voxel of a live row, counted from the kernel:
-# projection, frustum test, observation, weighted average, Welford update;
-# then the color update of each mode.
-OPS_PER_VOXEL = 60
+# Float32 operations counted from csrc/fusion.cu: the projection of a
+# voxel (cell centre, pose, pixel, range tests), the coarse frustum test
+# where frustum culling is on, the update of an observed voxel
+# (observation, weighted average, Welford update), and the color update of
+# each mode.
+PROJECT_OPS_PER_VOXEL = 42
+FRUSTUM_OPS_PER_VOXEL = 35
+UPDATE_OPS_PER_VOXEL = 19
 COLOR_OPS_PER_VOXEL = {COLOR_MODE_RGB: 15, COLOR_MODE_RGB_NORMALIZED: 25,
                        COLOR_MODE_LAB: 72}
+
+
+def ops_needed(cfg, n_projected: int, n_observed: int) -> int:
+    """Float32 operations of one fuse_bricks call: n_projected voxels (every
+    voxel of the live rows) projected and tested, n_observed of them
+    updated."""
+    per_voxel = PROJECT_OPS_PER_VOXEL + (FRUSTUM_OPS_PER_VOXEL if cfg.frustum_culling else 0)
+    per_obs = UPDATE_OPS_PER_VOXEL + (COLOR_OPS_PER_VOXEL.get(cfg.color_mode, 0)
+                                      if cfg.integrate_color else 0)
+    return n_projected * per_voxel + n_observed * per_obs

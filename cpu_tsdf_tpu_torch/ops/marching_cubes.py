@@ -50,7 +50,10 @@ from .mc_tables import CORNER_OFFSETS, EDGE_CORNERS, MAX_TRIS_PER_CUBE, TRI_COUN
 # Default minimum weight to mesh a voxel (marching_cubes_tsdf_octree.h:58).
 DEFAULT_MIN_WEIGHT = 2.5
 
-V = 512  # voxels of an 8^3 brick: the brick width of both kernels
+# What csrc/mc_corner_halo.cu returns, launching nothing, for a brick size
+# whose block would need more shared memory than the card has (B > 118 on
+# an H100: two (B+1)^2 halo layers of sdf and weight).
+_BRICK_TOO_LARGE = -1
 
 # Kernel launches since the last reset (plain runs not counted).
 launches = {"corner_halo": 0, "emit": 0}
@@ -211,6 +214,20 @@ def _corner_halo_plain(bv, slots, min_weight: float):
     return on.sum(1, dtype=torch.int32), cube, corners, ntri
 
 
+def check_kernel_brick(what: str, B: int, C: int) -> int:
+    """B^3, after the checks of the MC kernels' brick size: even, and
+    capacity * B^3 below 2^31, so that every cube reference slot * B^3 +
+    voxel fits the kernels' int32 (2^24 at the default 2^15 rows of 8^3,
+    and at 2^9 rows of 32^3). The corner-halo kernel's own limit, its
+    shared memory, is checked at launch."""
+    if B % 2 or B < 2:
+        raise ValueError(f"{what}: the MC kernels take even brick sizes, got {B}")
+    if C * B ** 3 >= 1 << 31:
+        raise ValueError(f"{what}: capacity * B^3 = {C * B ** 3} does not fit the "
+                         "kernels' int32 cube references (at most 2^31 - 1)")
+    return B ** 3
+
+
 def corner_halo(bv, slots, min_weight: float):
     """Cube filter, per-brick compaction and corner stacks of the crossing
     cubes of the bricks at ``slots`` (int32 [K]; dead = negative, >= C, or
@@ -225,16 +242,17 @@ def corner_halo(bv, slots, min_weight: float):
 
     The cubeindex is PCL's over the values in meters (d * max_dist_neg).
     On CPU tensors: :func:`_corner_halo_plain`. On CUDA tensors:
-    csrc/mc_corner_halo.cu (8^3 bricks only)."""
+    csrc/mc_corner_halo.cu, for every even brick size whose two (B+1)^2
+    halo layers fit a block's shared memory (B <= 118 on an H100); a larger
+    one raises a ValueError."""
     if bv.device.type == "cpu":
         return _corner_halo_plain(bv, slots, min_weight)
     from .._build import check, check_tensor, function, stream_ptr
 
     dev = bv.device
-    C, K = bv.capacity, slots.shape[0]
+    C, K, B = bv.capacity, slots.shape[0], bv.brick_size
+    V = check_kernel_brick("corner_halo", B, C)
     nb = bv.bricks_per_axis
-    if bv.brick_size != 8:
-        raise ValueError("the corner-halo kernel takes 8^3 bricks only")
     for what, t, dt, shape in (("slots", slots, torch.int32, (K,)),
                                ("sdf", bv.sdf, torch.float32, (C, V)),
                                ("weight", bv.weight, torch.float32, (C, V)),
@@ -248,13 +266,16 @@ def corner_halo(bv, slots, min_weight: float):
     corners = torch.empty((K, V, 8), dtype=torch.float32, device=dev)
     ntri = torch.empty((K,), dtype=torch.int32, device=dev)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = function("mc_corner_halo", "tsdf_corner_halo", [p] * 5 + [i] * 8 + [f, f] + [p] * 5)
+    fn = function("mc_corner_halo", "tsdf_corner_halo", [p] * 5 + [i] * 9 + [f, f] + [p] * 5)
     cfg = bv.config
     err = fn(bv.sdf.data_ptr(), bv.weight.data_ptr(), bv.brick_map.data_ptr(),
-             bv.coords.data_ptr(), slots.data_ptr(), K, C, *nb,
+             bv.coords.data_ptr(), slots.data_ptr(), K, B, C, *nb,
              cfg.xres, cfg.yres, cfg.zres, float(min_weight), cfg.max_dist_neg,
              count.data_ptr(), cube.data_ptr(), corners.data_ptr(), ntri.data_ptr(),
              stream_ptr(dev))
+    if err == _BRICK_TOO_LARGE:
+        raise ValueError(f"corner_halo: two {B + 1}^2 halo layers of bricks of {B}^3 do "
+                         "not fit a block's shared memory")
     check(err, "corner_halo")
     launches["corner_halo"] += 1
     return count, cube, corners, ntri
@@ -353,21 +374,20 @@ def _emit_plain(bv, slots, count, cube, corners):
 
 def emit_triangles(bv, slots, count, cube, corners, tri_off, n_tri: int):
     """The triangles of corner_halo's crossing cubes: (vertices [n_tri, 3, 3]
-    f32 after the global transform, tri_cube [n_tri] int32 = slot * 512 +
+    f32 after the global transform, tri_cube [n_tri] int32 = slot * B^3 +
     voxel of each triangle's cube), in candidate order, then rank, then
     case-table slot. tri_off int32 [K] is each brick's first triangle (the
     exclusive prefix sum of corner_halo's ntri) and n_tri the total.
 
-    On CPU tensors: :func:`_emit_plain`. On CUDA tensors: csrc/mc_emit.cu
-    (8^3 bricks only)."""
+    On CPU tensors: :func:`_emit_plain`. On CUDA tensors: csrc/mc_emit.cu,
+    for every even brick size."""
     if bv.device.type == "cpu":
         return _emit_plain(bv, slots, count, cube, corners)
     from .._build import check, check_tensor, function, stream_ptr
 
     dev = bv.device
-    C, K = bv.capacity, slots.shape[0]
-    if bv.brick_size != 8:
-        raise ValueError("the emission kernel takes 8^3 bricks only")
+    C, K, B = bv.capacity, slots.shape[0], bv.brick_size
+    V = check_kernel_brick("emit_triangles", B, C)
     for what, t, dt, shape in (("slots", slots, torch.int32, (K,)),
                                ("coords", bv.coords, torch.int32, (C, 3)),
                                ("count", count, torch.int32, (K,)),
@@ -388,10 +408,10 @@ def emit_triangles(bv, slots, count, cube, corners, tri_off, n_tri: int):
                                 cfg.zsize / 2.0, cfg.max_dist_neg)
     p = ctypes.c_void_p
     fn = function("mc_emit", "tsdf_mc_emit",
-                  [p] * 7 + [ctypes.c_int, ctypes.POINTER(ctypes.c_float), p, p, p])
+                  [p] * 7 + [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_float), p, p, p])
     err = fn(slots.data_ptr(), bv.coords.data_ptr(), count.data_ptr(), cube.data_ptr(),
              corners.data_ptr(), tri_off.data_ptr(), bv.global_transform.data_ptr(), K,
-             grid, verts.data_ptr(), tri_cube.data_ptr(), stream_ptr(dev))
+             B, grid, verts.data_ptr(), tri_cube.data_ptr(), stream_ptr(dev))
     check(err, "emit_triangles")
     launches["emit"] += 1
     return verts, tri_cube
@@ -560,19 +580,20 @@ def extract_mesh(vol, min_weight: float = DEFAULT_MIN_WEIGHT,
     return marching_cubes(vol, min_weight, color_by_rgb, color_by_confidence).to_numpy()
 
 
-def bytes_moved_corner_halo(n_bricks: int, n_cubes: int) -> int:
-    """Least traffic of one corner_halo call: each candidate's 9^3 halo of
-    d and w read once; its cube table (512 entries: the crossing cubes'
-    codes and the -1 after them), count and triangle count written once,
-    and 32 B of corners for each of the n_cubes crossing cubes."""
-    return n_bricks * (9 ** 3 * 2 * 4 + V * 4 + 8) + n_cubes * 8 * 4
+def bytes_moved_corner_halo(n_bricks: int, n_cubes: int, B: int = 8) -> int:
+    """Least traffic of one corner_halo call on bricks of B^3 voxels: each
+    candidate's (B+1)^3 halo of d and w read once; its cube table (B^3
+    entries: the crossing cubes' codes and the -1 after them), count and
+    triangle count written once, and 32 B of corners for each of the
+    n_cubes crossing cubes."""
+    return n_bricks * ((B + 1) ** 3 * 2 * 4 + B ** 3 * 4 + 8) + n_cubes * 8 * 4
 
 
-def bytes_moved_dense_stack(n_bricks: int) -> int:
+def bytes_moved_dense_stack(n_bricks: int, B: int = 8) -> int:
     """Least traffic of the former dense corner-halo contract, kept as a
-    yardstick: the 9^3 halo read, every voxel's 8 corner values, ok and loc
-    written."""
-    return n_bricks * (9 ** 3 * 2 * 4 + V * (8 + 2) * 4)
+    yardstick: the (B+1)^3 halo read, every voxel's 8 corner values, ok and
+    loc written."""
+    return n_bricks * ((B + 1) ** 3 * 2 * 4 + B ** 3 * (8 + 2) * 4)
 
 
 def bytes_moved_emit(n_bricks: int, n_cubes: int, n_tris: int) -> int:

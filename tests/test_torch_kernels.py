@@ -52,31 +52,52 @@ def _frames(cfg, n=4, step=0.5, noise=0.0):
         yield m, d, rgb
 
 
-def _volumes(dev, mode, options=None, n=4, step=0.5, noise=0.0):
+def _sizes(cfg, B):
+    """Capacity and update budget for bricks of B^3 on cfg's grid: 4096 and
+    2048 rows of 8^3 scaled to hold the same voxels, at least every brick
+    of the grid (and the dump row) and a budget of 64."""
+    n_bricks = (cfg.xres // B) * (cfg.yres // B) * (cfg.zres // B)
+    capacity = max(4096 * 512 // B ** 3, n_bricks + 1)
+    return capacity, min(capacity - 1, max(2048 * 512 // B ** 3, 64))
+
+
+def _volumes(dev, mode, options=None, n=4, step=0.5, noise=0.0, B=8):
+    """Two brick volumes of B^3 bricks fused from the same frames, the
+    first through the fusion kernel, the second through the plain engine."""
     cfg = CFG if mode is None else CFG.with_updates(integrate_color=True, color_mode=mode)
     cfg = cfg.with_updates(**(options or {}))
-    vols = [tb.make_brick_volume(cfg, 8, 4096, device=dev) for _ in range(2)]
+    capacity, budget = _sizes(cfg, B)
+    vols = [tb.make_brick_volume(cfg, B, capacity, device=dev) for _ in range(2)]
     for pose, depth, rgb in _frames(cfg, n, step, noise):
         for v, kernel in zip(vols, (True, False)):
-            tb.integrate_bricks(v, depth, pose, None if mode is None else rgb, 2048,
+            tb.integrate_bricks(v, depth, pose, None if mode is None else rgb, budget,
                                 use_kernel=kernel)
     torch.cuda.synchronize()
     return vols
 
 
-# (color mode, config options, frames, orbit step in rad, depth noise in m).
-# The variance gate engages above 5 samples, so that case fuses 8 nearby
-# views; its per-frame noise keeps M > 0 (identical observations make the
-# gate's exp a 0/0).
+# (color mode, config options, frames, orbit step in rad, depth noise in m,
+# brick size). The variance gate engages above 5 samples, so that case fuses
+# 8 nearby views; its per-frame noise keeps M > 0 (identical observations
+# make the gate's exp a 0/0). Bricks of 6 take the kernels' division path
+# on a 96^3 grid; bricks of 2 and 4 put several rows in a fusion block,
+# bricks of 16 and 32 a row in several.
+B96 = {"xres": 96, "yres": 96, "zres": 96}
 FUSION_CASES = {
-    "plain": (None, {}, 4, 0.5, 0.0),
-    "rgb": ("RGB", {}, 4, 0.5, 0.0),
-    "rgb_normalized": ("RGBNormalized", {}, 4, 0.5, 0.0),
-    "lab": ("LAB", {}, 4, 0.5, 0.0),
-    "weight_by_depth": ("RGB", {"weight_by_depth": True}, 4, 0.5, 0.0),
+    "plain": (None, {}, 4, 0.5, 0.0, 8),
+    "rgb": ("RGB", {}, 4, 0.5, 0.0, 8),
+    "rgb_normalized": ("RGBNormalized", {}, 4, 0.5, 0.0, 8),
+    "lab": ("LAB", {}, 4, 0.5, 0.0, 8),
+    "weight_by_depth": ("RGB", {"weight_by_depth": True}, 4, 0.5, 0.0, 8),
     "weight_by_variance": (None, {"weight_by_depth": True, "weight_by_variance": True},
-                           8, 0.05, 0.0015),
-    "no_frustum_culling": ("RGB", {"frustum_culling": False}, 4, 0.5, 0.0),
+                           8, 0.05, 0.0015, 8),
+    "no_frustum_culling": ("RGB", {"frustum_culling": False}, 4, 0.5, 0.0, 8),
+    "brick_2": ("RGB", {}, 4, 0.5, 0.0, 2),
+    "brick_4": ("RGB", {}, 4, 0.5, 0.0, 4),
+    "brick_6_of_96": ("RGB", B96, 4, 0.5, 0.0, 6),
+    "brick_16": ("RGB", {}, 4, 0.5, 0.0, 16),
+    "brick_32": ("RGB", {}, 4, 0.5, 0.0, 32),
+    "brick_6_of_96_lab": ("LAB", B96, 4, 0.5, 0.0, 6),
 }
 
 
@@ -89,12 +110,13 @@ def test_fusion_kernel_matches_plain(cuda_device, case):
     reciprocal of a scalar divisor another way, a few ulp apart, and the
     error then averages into the color over the frames. Covers the kernel's
     option branches: depth weighting, the variance gate, no frustum
-    culling, and all three color modes."""
-    mode, options, n, step, noise = FUSION_CASES[case]
+    culling, all three color modes, and brick sizes 2, 4, 6, 16 and 32
+    beside 8."""
+    mode, options, n, step, noise, B = FUSION_CASES[case]
     before = fk.launches["fusion"]
-    k, p = _volumes(cuda_device, mode, options, n, step, noise)
+    k, p = _volumes(cuda_device, mode, options, n, step, noise, B)
     assert fk.launches["fusion"] == before + n
-    assert int(k.n_active) > 100 and not bool(k.overflowed)
+    assert int(k.n_active) > min(100, k.capacity // 4) and not bool(k.overflowed)
     if options.get("weight_by_variance"):
         assert int((k.nsample > 6).sum()) > 1000  # the gate ran on many voxels
     for name in ("brick_map", "coords", "n_active", "nsample"):
@@ -125,13 +147,19 @@ def test_fusion_kernel_rejects_bad_input(cuda_device):
 
 
 # (color mode of the volume, color_by_rgb, color_by_confidence, a brick
-# list with count = 0 bricks and a moved global transform)
+# list with count = 0 bricks and a moved global transform, brick size,
+# config options)
 MC_CASES = {
-    "no_color": (None, False, False, False),
-    "rgb": ("RGB", True, False, False),
-    "confidence": ("RGB", False, True, False),
-    "lab": ("LAB", True, False, False),
-    "zero_count_bricks": ("RGB", True, False, True),
+    "no_color": (None, False, False, False, 8, {}),
+    "rgb": ("RGB", True, False, False, 8, {}),
+    "confidence": ("RGB", False, True, False, 8, {}),
+    "lab": ("LAB", True, False, False, 8, {}),
+    "zero_count_bricks": ("RGB", True, False, True, 8, {}),
+    "brick_2": ("RGB", True, False, True, 2, {}),
+    "brick_4": ("RGB", True, False, True, 4, {}),
+    "brick_6_of_96": ("RGB", True, False, True, 6, B96),
+    "brick_16": ("RGB", True, False, True, 16, {}),
+    "brick_32": ("RGB", True, False, True, 32, {}),
 }
 
 
@@ -141,12 +169,14 @@ def test_mc_kernels_match_plain(cuda_device, case):
     corner rows exact) and the emission (triangles, cube references and
     vertices bit-equal) against their plain versions on the card, then the
     kernel route's mesh against the plain route's, colors included. The
-    count = 0 case puts dead, out-of-range and negative slots between the
-    candidates and moves the global transform."""
-    mode, rgb, conf, zero = MC_CASES[case]
-    vol, _ = _volumes(cuda_device, mode)
+    count = 0 cases put dead, out-of-range and negative slots between the
+    candidates and move the global transform; the brick-size cases run
+    the kernels' template instances for 2, 4, 6 (on a 96^3 grid), 16 (one
+    17^3 halo a brick) and 32 (the halo in x-slabs)."""
+    mode, rgb, conf, zero, B, options = MC_CASES[case]
+    vol, _ = _volumes(cuda_device, mode, options, B=B)
     cand = mc._candidate_slots(vol, 0.5)
-    assert cand.shape[0] > 50
+    assert cand.shape[0] > min(50, vol.capacity // 16)
     if zero:
         C = vol.capacity
         dead = torch.tensor([C - 1, C + 5, -3], dtype=torch.int32, device=cuda_device)
@@ -159,7 +189,7 @@ def test_mc_kernels_match_plain(cuda_device, case):
     before = dict(mc.launches)
     count, cube, corners, ntri = mc.corner_halo(vol, cand, 0.5)
     pcount, pcube, pcorners, pntri = mc._corner_halo_plain(vol, cand, 0.5)
-    live = torch.arange(512, device=cuda_device)[None] < count[:, None]
+    live = torch.arange(B ** 3, device=cuda_device)[None] < count[:, None]
     assert torch.equal(count, pcount) and torch.equal(cube, pcube) and torch.equal(ntri, pntri)
     assert torch.equal(corners[live], pcorners[live])
     if zero:
@@ -179,6 +209,62 @@ def test_mc_kernels_match_plain(cuda_device, case):
     assert (sk.colors is None) == (sp.colors is None) == (not (rgb or conf))
     if sk.colors is not None:
         assert torch.equal(sk.colors, sp.colors)
+
+
+@pytest.mark.parametrize("B", range(2, 35, 2))
+def test_every_brick_size_runs_the_kernels(cuda_device, B):
+    """At every even brick size up to 34, integrate_bricks and
+    extract_soup_bricks on the card launch the fusion kernel once a frame
+    and the corner halo and the emission once an extraction (no plain
+    version on the card), and give the plain routes' volume and mesh. The
+    grid is the multiple of B nearest 96 from above."""
+    res = -(-96 // B) * B
+    cfg = CFG.with_updates(xres=res, yres=res, zres=res, integrate_color=True,
+                           color_mode="RGB")
+    capacity, budget = _sizes(cfg, B)
+    k, p = (tb.make_brick_volume(cfg, B, capacity, device=cuda_device) for _ in range(2))
+    fk.launches["fusion"] = 0
+    mc.launches.update(corner_halo=0, emit=0)
+    for n, (pose, depth, rgb) in enumerate(_frames(cfg, 2), 1):
+        tb.integrate_bricks(k, depth, pose, rgb, budget)
+        assert fk.launches["fusion"] == n
+        tb.integrate_bricks(p, depth, pose, rgb, budget, use_kernel=False)
+    assert fk.launches["fusion"] == 2 and not bool(k.overflowed)
+    for name in ("brick_map", "coords", "weight", "nsample", "color"):
+        assert torch.equal(getattr(k, name), getattr(p, name)), name
+    assert float((k.sdf - p.sdf).abs().max()) <= 1e-5
+    sk = mc.extract_soup_bricks(k, 0.5, True)
+    assert mc.launches == {"corner_halo": 1, "emit": 1}
+    sp = mc.extract_soup_bricks(k, 0.5, True, use_kernel=False)
+    assert mc.launches == {"corner_halo": 1, "emit": 1}
+    assert sk.num_triangles == sp.num_triangles > 500
+    assert torch.equal(sk.vertices, sp.vertices) and torch.equal(sk.colors, sp.colors)
+
+
+def test_mc_kernels_refuse_bricks_past_shared_memory(cuda_device):
+    """The corner halo stages two (B+1)^2 halo layers in a block's shared
+    memory (ROADMAP, deliberate differences): bricks of 118^3, the largest
+    that fit an H100's 227 KB, mesh through both MC kernels as the plain
+    route does; bricks of 120^3 are refused with a ValueError that names
+    the limit, and fusion takes them."""
+    for B in (118, 120):
+        cfg = CFG.with_updates(xres=2 * B, yres=2 * B, zres=2 * B)
+        vol = tb.make_brick_volume(cfg, B, 9, device=cuda_device)
+        pose, depth, _ = next(_frames(cfg, 1))
+        tb.integrate_bricks(vol, depth, pose, None, 8)
+        assert int(vol.n_active) > 0 and not bool(vol.overflowed)
+        mc.launches.update(corner_halo=0, emit=0)
+        if B == 118:
+            sk = mc.extract_soup_bricks(vol, 0.5, use_kernel=True)
+            sp = mc.extract_soup_bricks(vol, 0.5, use_kernel=False)
+            assert mc.launches == {"corner_halo": 1, "emit": 1}
+            assert sk.num_triangles == sp.num_triangles > 500
+            assert torch.equal(sk.vertices, sp.vertices)
+            continue
+        slots = torch.zeros((1,), dtype=torch.int32, device=cuda_device)
+        with pytest.raises(ValueError, match="shared memory"):
+            mc.corner_halo(vol, slots, 0.5)
+        assert mc.launches == {"corner_halo": 0, "emit": 0}
 
 
 def test_mc_empty_extractions_launch_nothing(cuda_device):
@@ -291,11 +377,17 @@ def test_tile_width():
 def test_fusion_bound_bytes():
     """Frame 24 of chip_smoke's main path (2109 live rows, RGB, 640x480):
     state and color of every voxel of a live row, both images once; the
-    bound of the observed voxels alone counts fewer state bytes."""
+    bound of the observed voxels alone counts fewer state bytes. Its
+    operations: every voxel projected and frustum-tested, the observed ones
+    updated (and colored)."""
     assert fk.bytes_moved(2109, 480, 640, 3) == 65_384_448
     assert fk.bytes_moved(2109, 480, 640, 0) == 2109 * 512 * 32 + 480 * 640 * 4
     assert fk.voxel_bytes(2109 * 512, 480, 640, 3) == fk.bytes_moved(2109, 480, 640, 3)
     assert fk.voxel_bytes(0, 480, 640, 3) == 480 * 640 * 16
+    rgb = CFG.with_updates(integrate_color=True, color_mode="RGB")
+    assert fk.ops_needed(rgb, 2109 * 512, 0) == 2109 * 512 * (42 + 35)
+    assert fk.ops_needed(rgb, 10, 4) == 10 * 77 + 4 * (19 + 15)
+    assert fk.ops_needed(CFG.with_updates(frustum_culling=False), 10, 4) == 10 * 42 + 4 * 19
 
 
 def test_probe_tail_cut():
@@ -440,11 +532,12 @@ def _write_cli_sequence(dirname, n=4):
                 f.write(" ".join(f"{v:.9g}" for v in row) + "\n")
 
 
-def test_cli_on_card_matches_cpu(cuda_device, tmp_path, monkeypatch):
-    """integrate (--sparse --color --visualize-every 2) with TSDF_DEVICE=cuda
-    and =cpu: the volumes to the fusion tolerances (weight, nsample, color
-    exact; sdf and M within 1e-5), the same triangles; the card run launched
-    all four kernels."""
+@pytest.mark.parametrize("brick", [8, 16])
+def test_cli_on_card_matches_cpu(cuda_device, tmp_path, monkeypatch, brick):
+    """integrate (--sparse --color --visualize-every 2, bricks of 8 and of
+    16) with TSDF_DEVICE=cuda and =cpu: the volumes to the fusion
+    tolerances (weight, nsample, color exact; sdf and M within 1e-5), the
+    same triangles; the card run launched all four kernels."""
     from cpu_tsdf_tpu_torch.cli import integrate_main
     from cpu_tsdf_tpu_torch.io.ply import load_ply
 
@@ -455,7 +548,8 @@ def test_cli_on_card_matches_cpu(cuda_device, tmp_path, monkeypatch):
             "--fx", "140", "--fy", "140", "--cx", "80", "--cy", "60",
             "--trunc-dist-pos", "0.04", "--trunc-dist-neg", "0.04",
             "--min-sensor-dist", "0.1", "--max-cell-size", "0.2", "--sparse",
-            "--brick-capacity", "4096", "--color", "--save-tsdf", "--visualize-every", "2"]
+            "--brick-size", str(brick), "--brick-capacity", str(4096 * 512 // brick ** 3),
+            "--color", "--save-tsdf", "--visualize-every", "2"]
     rk.launches["raycast"] = 0
     fk.launches["fusion"] = 0
     mc.launches.update(corner_halo=0, emit=0)

@@ -173,8 +173,8 @@ def tail_cut(raycast_src: str) -> str:
 
 # The emission kernel's staged stores, and what a thread storing its own
 # triangles puts in their place (direct_store).
-STAGE_DECL = """  __shared__ float st_v[kStage * 9];
-  __shared__ int st_c[kStage];
+STAGE_DECL = """  extern __shared__ float st_v[];                            // [NT * kMaxTris * 9]
+  int* st_c = reinterpret_cast<int*>(st_v + NT * kMaxTris * 9);  // [NT * kMaxTris]
 """
 STAGE_PUT = """        float* dst = st_v + (first + i) * 9;
 #pragma unroll
@@ -188,8 +188,8 @@ DIRECT_PUT = """        float* dst = verts + (size_t)(base + first + i) * 9;
 """
 STAGE_OUT = """    __syncthreads();
     float* dv = verts + (size_t)base * 9;
-    for (int f = t; f < total * 9; f += kThreads) dv[f] = st_v[f];
-    for (int f = t; f < total; f += kThreads) tri_cube[base + f] = st_c[f];
+    for (int f = t; f < total * 9; f += NT) dv[f] = st_v[f];
+    for (int f = t; f < total; f += NT) tri_cube[base + f] = st_c[f];
 """
 
 
@@ -268,11 +268,12 @@ def mc_probe(torch, vol, timer, built, parent) -> dict:
     for name in [n for n in built if n.startswith("mc_corner_halo")]:
         fn = ctypes.CDLL(str(built[name][0])).tsdf_corner_halo
         fn.restype = ctypes.c_int
-        fn.argtypes = [p] * 5 + [i] * 8 + [f, f] + [p] * 5
+        fn.argtypes = [p] * 5 + [i] * 9 + [f, f] + [p] * 5
 
         def run(fn=fn, name=name):
             _build.check(fn(vol.sdf.data_ptr(), vol.weight.data_ptr(), vol.brick_map.data_ptr(),
-                            vol.coords.data_ptr(), cand.data_ptr(), K, vol.capacity,
+                            vol.coords.data_ptr(), cand.data_ptr(), K, vol.brick_size,
+                            vol.capacity,
                             *vol.bricks_per_axis, cfg.xres, cfg.yres, cfg.zres, 0.5,
                             cfg.max_dist_neg, *(o.data_ptr() for o in outs), stream), name)
         run()
@@ -292,13 +293,13 @@ def mc_probe(torch, vol, timer, built, parent) -> dict:
     for name in [n for n in built if n.startswith("mc_emit")]:
         fn = ctypes.CDLL(str(built[name][0])).tsdf_mc_emit
         fn.restype = ctypes.c_int
-        fn.argtypes = [p] * 7 + [i, ctypes.POINTER(ctypes.c_float)] + [p] * 3
+        fn.argtypes = [p] * 7 + [i, i, ctypes.POINTER(ctypes.c_float)] + [p] * 3
 
         def run(fn=fn, name=name):
             _build.check(fn(cand.data_ptr(), vol.coords.data_ptr(), count.data_ptr(),
                             cube.data_ptr(), corners.data_ptr(), off.data_ptr(),
-                            vol.global_transform.data_ptr(), K, grid, verts.data_ptr(),
-                            tri_cube.data_ptr(), stream), name)
+                            vol.global_transform.data_ptr(), K, vol.brick_size, grid,
+                            verts.data_ptr(), tri_cube.data_ptr(), stream), name)
         verts.fill_(float("nan"))
         run()
         torch.cuda.synchronize()
