@@ -8,15 +8,16 @@ Phases (any failure raises and exits non-zero before the last line):
   1. the card's name and power limit (nvidia-smi), then the kernels' build
      from cpu_tsdf_tpu_torch/csrc (one nvcc per source, all at once);
   2. the main path through the library entry points a user calls:
-     make_brick_volume -> integrate_bricks over a 48-pose noisy colored
+     make_brick_volume -> integrate_bricks (the frame's CUDA graph, the
+     default on the card; phase 11) over a 48-pose noisy colored
      orbit of a radius-0.5 sphere at the reference default (512^3, 3 m,
      640x480, f=525) -> extract_mesh -> save_ply. The kernels' launch
      counts are zeroed just before it and read just after: every kernel
      must have run. The mesh must lie on the sphere (median radius error
      below half a cell) and the volume must not have overflowed;
-  3. the frame-time breakdown (activation + allocation, the fusion kernel
-     with its color update, the glue left in fuse_brick_batch) on replayed
-     frames;
+  3. the eager frame's time breakdown (activation + allocation, the
+     fusion kernel with its color update, the glue left in
+     fuse_brick_batch) on replayed frames;
   4. each kernel against its plain PyTorch version on the same card, at
      the main path's shapes (fusion: one real frame's update list with
      color, weight, nsample and RGB color exact, sdf and M within 1e-5,
@@ -101,9 +102,25 @@ Phases (any failure raises and exits non-zero before the last line):
      triangles and radius error go to a {"brick_sizes": ...} line, the
      kernels' times to their records in the kernels line.
 
+ 11. the graphed routes (cpu_tsdf_tpu_torch/graph.py; phases 2, 6, 7 and 10
+     take them by default, phase 3 times the eager frame): the 48-frame
+     orbit at 8^3 fused by graphed per-frame calls, by eager ones
+     (graph=False), by a graphed and by an eager integrate_bricks_sequence
+     into four volumes, every state tensor bit-equal and the fusion kernel
+     counted once a frame on each route, then the graphed sequence again
+     (steady: its graph captured); an eager and a graphed frame under
+     torch.cuda.set_sync_debug_mode("error"); the card's busy share of 8
+     frames on each route (torch.profiler); the 48 colored renders of one
+     packed volume graphed and eager, bit-equal, the march counted once a
+     render, with their busy shares; the same fusion comparison on 6 frames
+     at phase 10's bricks of 4 and 16 and with num_random_splits = 3. Steady
+     frame ms (host clock, the first frame apart: it captures), renders/s,
+     each graph's capture ms, pool MB and launches a replay go to a
+     {"graphs": ...} line.
+
 Output: progress on stderr; on stdout the differentiable renders' numbers
 {"render_grad": {...}}, the CLI path's {"cli": {...}}, {"refine": {...}},
-{"parallel": {...}}, {"brick_sizes": {...}}, a line of kernel
+{"parallel": {...}}, {"brick_sizes": {...}}, {"graphs": {...}}, a line of kernel
 records {"kernels": [...]} (each with its launches on every path and its
 times at the other brick sizes), the
 nvidia-smi line, and last
@@ -1201,6 +1218,181 @@ def parallel_phase(torch, cfg, spec=None):
     return res
 
 
+# Phase 11: the orbit frames fused at the other brick sizes (phase 10's
+# capacity and budget) and with the jitter
+GRAPH_FRAMES = 6
+GRAPH_STATE = ("sdf", "weight", "M", "nsample", "color", "brick_map", "coords", "n_active",
+               "overflowed")
+
+
+def assert_states_equal(torch, a, b, what: str) -> None:
+    """Every state tensor of two brick volumes bit-equal (NaN where NaN)."""
+    for name in GRAPH_STATE:
+        x, y = getattr(a, name), getattr(b, name)
+        if x.is_floating_point():
+            same = torch.equal(x.isnan(), y.isnan()) and torch.equal(x.nan_to_num(),
+                                                                      y.nan_to_num())
+        else:
+            same = torch.equal(x, y)
+        if not same:
+            raise AssertionError(f"{what}: {name} differs")
+
+
+def fuse_routes(torch, cfg, B, capacity, budget, poses, depths, rgb, frames):
+    """The frames fused by graphed per-frame calls, by eager ones (the
+    default route against graph=False) and by a graphed and an eager
+    integrate_bricks_sequence, into four new volumes; the four states
+    bit-equal (with the jitter: graphed against eager per route); then the
+    graphed sequence once more on its volume, its graph captured. Returns
+    the host ms a frame of each route (per-frame calls: all but the first,
+    which captures a graph, with the first apart; sequences: all frames,
+    and again steady), and the volumes."""
+    from cpu_tsdf_tpu_torch import bricks, make_brick_volume
+
+    vols = {k: make_brick_volume(cfg, B, capacity, device=poses.device)
+            for k in ("graph", "eager", "seq_graph", "seq_eager")}
+    ms = {}
+    for route, flag in (("graph", None), ("eager", False)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bricks.integrate_bricks(vols[route], depths[frames[0]], poses[frames[0]], rgb, budget,
+                                graph=flag)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in frames[1:]:
+            bricks.integrate_bricks(vols[route], depths[i], poses[i], rgb, budget, graph=flag)
+        torch.cuda.synchronize()
+        ms[route + "_first"] = (t1 - t0) * 1e3
+        ms[route] = (time.perf_counter() - t1) * 1e3 / (len(frames) - 1)
+    idx = torch.as_tensor(frames, device=poses.device)
+    rgbs = rgb.expand(len(frames), *rgb.shape)
+    for route, flag in (("seq_graph", None), ("seq_eager", False)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bricks.integrate_bricks_sequence(vols[route], depths[idx], poses[idx], rgbs, budget,
+                                         graph=flag)
+        torch.cuda.synchronize()
+        ms[route] = (time.perf_counter() - t0) * 1e3 / len(frames)
+    what = f"{len(frames)} frames at {B}^3, {cfg.num_random_splits} split(s)"
+    assert_states_equal(torch, vols["graph"], vols["eager"], f"{what}: graphed frames")
+    assert_states_equal(torch, vols["seq_graph"], vols["seq_eager"], f"{what}: graphed sequence")
+    if cfg.num_random_splits == 1:
+        assert_states_equal(torch, vols["seq_graph"], vols["graph"], f"{what}: sequence")
+    if bool(vols["graph"].overflowed) or int(vols["graph"].n_active) < 100:
+        raise AssertionError(f"{what}: overflowed or nearly empty")
+    # the graphed sequence again, its graph captured (the volume moves on)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bricks.integrate_bricks_sequence(vols["seq_graph"], depths[idx], poses[idx], rgbs, budget)
+    torch.cuda.synchronize()
+    ms["seq_graph_steady"] = (time.perf_counter() - t0) * 1e3 / len(frames)
+    return ms, vols
+
+
+def busy_share(torch, fn) -> dict:
+    """fn's kernel time by torch.profiler over its unprofiled wall time."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy, top = device_ms(torch, fn)
+    return {"wall_ms": wall, "device_ms": busy, "share": busy / wall, "largest": top}
+
+
+def graph_phase(torch, cfg, poses, depths, rgb, smi):
+    """Phase 11 (see the module docstring); returns the {"graphs": ...}
+    numbers."""
+    from cpu_tsdf_tpu_torch import bricks, graph, pack_render, render_view
+    from cpu_tsdf_tpu_torch.ops import fusion_kernel as fk
+    from cpu_tsdf_tpu_torch.ops import raycast_kernel as rk
+
+    n = len(poses)
+    capacity, budget = 1 << 15, 1 << 12
+    graph.clear()
+    fk.launches["fusion"] = 0
+    ms, vols = fuse_routes(torch, cfg, 8, capacity, budget, poses, depths, rgb, list(range(n)))
+    if fk.launches["fusion"] != 5 * n:
+        raise AssertionError(f"fusion launches {fk.launches['fusion']} for 5 x {n} frames")
+    res = {"card": smi, "frames": n, "frame_ms": ms,
+           "frames_per_s": {k: 1e3 / v for k, v in ms.items() if not k.endswith("_first")}}
+    frame_graph = graph.stats()[-1]
+    log(f"graphs, {n} frames at 8^3: graphed and eager frames, graphed and eager sequences "
+        f"bit-equal; steady frame ms {ms} (host clock); frame graph: capture "
+        f"{frame_graph['capture_ms']:.2f} ms, pool {frame_graph['pool_mb']:.2f} MB, "
+        f"launches a replay {frame_graph['launches']}")
+
+    # one eager frame under the sync debug mode (on the eager volume,
+    # after the comparisons)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        bricks.integrate_bricks(vols["eager"], depths[0], poses[0], rgb, budget, graph=False)
+        bricks.integrate_bricks(vols["graph"], depths[0], poses[0], rgb, budget)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert_states_equal(torch, vols["graph"], vols["eager"], "a frame under the sync check")
+    log("an eager and a graphed frame ran under torch.cuda.set_sync_debug_mode('error')")
+
+    # the card's busy share of 8 frames, each route (on its volume, whose
+    # graph is captured)
+    res["frame_busy"] = {r: busy_share(torch, lambda: [
+        bricks.integrate_bricks(vols[r], depths[i], poses[i], rgb, budget,
+                                graph=None if r == "graph" else False) for i in range(8)])
+        for r in ("graph", "eager")}
+
+    # renders: all poses both routes, bit-equal
+    packed = pack_render(vols["graph"])
+    t = {}
+    views = {}
+    for route, flag in (("graph", None), ("eager", False)):
+        render_view(packed, poses[0], colored=True, graph=flag)    # the graph's capture
+        torch.cuda.synchronize()
+        rk.launches["raycast"] = 0
+        t0 = time.perf_counter()
+        views[route] = [render_view(packed, poses[i], colored=True, graph=flag)
+                        for i in range(n)]
+        torch.cuda.synchronize()
+        t[route] = (time.perf_counter() - t0) * 1e3 / n
+        if rk.launches["raycast"] != n:
+            raise AssertionError(f"{route} renders launched the march "
+                                 f"{rk.launches['raycast']} times for {n}")
+    for i, (a, b) in enumerate(zip(views["graph"], views["eager"])):
+        diff = views_differ(torch, a, b)
+        if any(diff.values()):
+            raise AssertionError(f"graphed render {i} differs from the eager one: {diff}")
+    render_graph = graph.stats()[-1]
+    res["render_ms"] = t
+    res["renders_per_s"] = {k: 1e3 / v for k, v in t.items()}
+    res["render_busy"] = {r: busy_share(torch, lambda: [
+        render_view(packed, poses[i], colored=True, graph=None if r == "graph" else False)
+        for i in range(8)]) for r in ("graph", "eager")}
+    log(f"graphs: {n} colored renders, graphed and eager bit-equal; ms a render {t}; render "
+        f"graph: capture {render_graph['capture_ms']:.2f} ms, pool "
+        f"{render_graph['pool_mb']:.2f} MB")
+    del vols, views, packed
+
+    # the other brick sizes, and the jitter, on a few frames
+    frames = list(range(0, n, n // GRAPH_FRAMES))[:GRAPH_FRAMES]
+    res["other"] = {}
+    for name, B, c in (("brick_4", 4, cfg), ("brick_16", 16, cfg),
+                       ("splits_3", 8, cfg.with_updates(num_random_splits=3))):
+        cap, bud = BRICK_SIZES[B] if B in BRICK_SIZES else (capacity, budget)
+        ms_b, _ = fuse_routes(torch, c, B, cap, bud, poses, depths, rgb, frames)
+        res["other"][name] = {"frames": len(frames), "frame_ms": ms_b,
+                              "graph": graph.stats()[-1]}
+        log(f"graphs, {name}: {len(frames)} frames bit-equal on every route; steady frame ms "
+            f"{ms_b}; frame graphs {graph.stats()[-2:]}")
+    res["graphs"] = graph.stats()
+    res["frame_graph"], res["render_graph"] = frame_graph, render_graph
+    for r in ("graph", "eager"):
+        log(f"busy share, {r}: frames {res['frame_busy'][r]['share']:.4f} "
+            f"({res['frame_busy'][r]['device_ms']:.4f} of {res['frame_busy'][r]['wall_ms']:.4f} ms), "
+            f"renders {res['render_busy'][r]['share']:.4f}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1243,6 +1435,9 @@ def main() -> int:
     t0 = time.perf_counter()
     for i in range(n_poses):
         T.integrate_bricks(vol, depths[i], poses[i], rgb, budget)
+        if i == 0:
+            torch.cuda.synchronize()
+            t_first = time.perf_counter() - t0
     torch.cuda.synchronize()
     t_fuse = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1255,7 +1450,10 @@ def main() -> int:
     main_launches = {"fusion": fk.launches["fusion"], **mc.launches}
     n_live = int(vol.n_active)
     radius_err = float(np.median(np.abs(np.linalg.norm(verts, axis=1) - 0.5)))
-    log(f"main path: {n_poses} frames in {t_fuse:.3f} s = {n_poses / t_fuse:.2f} frames/s; "
+    log(f"main path: {n_poses} frames in {t_fuse:.3f} s = {n_poses / t_fuse:.2f} frames/s "
+        f"(the first frame {t_first * 1e3:.2f} ms: the process's first kernels and the "
+        f"frame graph's warm-up and capture; the other {n_poses - 1} "
+        f"{(t_fuse - t_first) * 1e3 / (n_poses - 1):.4f} ms each); "
         f"live bricks {n_live}; overflowed {bool(vol.overflowed)}; "
         f"{len(faces)} triangles; extraction {t_mesh * 1e3:.2f} ms (host clock, "
         f"includes the copy to the host); median |r-0.5| {radius_err * 1e3:.4f} mm; "
@@ -1310,7 +1508,7 @@ def main() -> int:
                                 depths[i_mid], pose_inv, rgb, True)
 
     def whole_frame():
-        T.integrate_bricks(shadow_vol, depths[i_mid], poses[i_mid], rgb, budget)
+        T.integrate_bricks(shadow_vol, depths[i_mid], poses[i_mid], rgb, budget, graph=False)
 
     shadow_vol = shadow(vol)
     shadow_vol.sdf, shadow_vol.weight, shadow_vol.M, shadow_vol.nsample = st
@@ -1320,18 +1518,18 @@ def main() -> int:
     t_fb = timer.ms(fuse_batch)
     t_frame = timer.ms(whole_frame)
     log(f"frame breakdown (frame {i_mid}, {n_ok} live rows): whole frame {t_frame:.4f} ms; "
-        f"activation+allocation {t_act:.4f} ms (one host sync: the allocation count); "
+        f"activation+allocation {t_act:.4f} ms (host-launched ops, no host sync); "
         f"fusion kernel with the color update {t_fk:.4f} ms (device); fuse_brick_batch "
         f"{t_fb:.4f} ms (kernel + glue: rgb trunc, row stack; launches included), glue "
         f"{t_fb - t_fk:.4f} ms")
     n_prof = 8
     t0 = time.perf_counter()
     for i in range(n_prof):
-        T.integrate_bricks(shadow_vol, depths[i], poses[i], rgb, budget)
+        T.integrate_bricks(shadow_vol, depths[i], poses[i], rgb, budget, graph=False)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     busy, top = device_ms(torch, lambda: [
-        T.integrate_bricks(shadow_vol, depths[i], poses[i], rgb, budget)
+        T.integrate_bricks(shadow_vol, depths[i], poses[i], rgb, budget, graph=False)
         for i in range(n_prof)])
     log(f"device busy over {n_prof} frames: {busy:.4f} ms of {wall:.4f} ms wall "
         f"(share {busy / wall:.4f}; torch.profiler kernel time, wall unprofiled); "
@@ -1397,6 +1595,9 @@ def main() -> int:
              for B in BRICK_SIZES}
     for res in sizes.values():
         res["card"] = smi
+
+    # ---- phase 11: the graphed frame, sequence and render against eager -----
+    graphs = graph_phase(torch, cfg, poses, depths, rgb, smi)
     b16, b16_mesh = cli_numbers["brick16_launches"], cli_numbers["brick16_tsdf2mesh_launches"]
     on_paths = {"fusion": {"main": main_launches["fusion"], "cli": cli_numbers["launches"]["fusion"],
                            "cli_brick_16": b16["fusion"],
@@ -1431,6 +1632,7 @@ def main() -> int:
     print(json.dumps({"parallel": par}))
     print(json.dumps({"brick_sizes": {str(B): {k: v for k, v in res.items() if k != "kernels"}
                                       for B, res in sizes.items()}}))
+    print(json.dumps({"graphs": graphs}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -107,15 +107,19 @@ def depth_mips(depth, base_level: int = 0) -> DepthMips:
         a = red(a, torch.cat([a[1:], a[-1:]], 0))
         return red(a, torch.cat([a[:, 1:], a[:, -1:]], 1))
 
-    offsets = np.cumsum([0] + [h * w for (h, w) in shapes[:-1]])
-    dev = depth.device
+    # the level tables from the level index on the device (a table copied
+    # from the host would be a host sync, and cannot be captured in a graph)
+    lv = torch.arange(base_level, base_level + len(shapes), dtype=torch.int32,
+                      device=depth.device)
+    widths = torch.clamp(Wp >> lv, min=1)
+    sizes = torch.clamp(Hp >> lv, min=1) * widths
     return DepthMips(
         flat_min=torch.cat([m.reshape(-1) for m in mins]),
         flat_max=torch.cat([m.reshape(-1) for m in maxs]),
         flat_min_d=torch.cat([dilate(m, torch.minimum).reshape(-1) for m in mins]),
         flat_max_d=torch.cat([dilate(m, torch.maximum).reshape(-1) for m in maxs]),
-        offsets=torch.as_tensor(offsets, dtype=torch.int32, device=dev),
-        widths=torch.as_tensor([w for (_, w) in shapes], dtype=torch.int32, device=dev),
+        offsets=torch.cumsum(sizes, 0, dtype=torch.int32) - sizes,
+        widths=widths,
         n_levels=len(shapes),
         global_min=mins[-1].reshape(()),
         global_max=maxs[-1].reshape(()),

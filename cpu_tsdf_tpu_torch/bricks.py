@@ -243,12 +243,20 @@ def _allocate_from_list(vol: BrickVolume, cand) -> None:
     Gap-aware, like the JAX package: the k-th new brick takes the k-th FREE
     row (coords[:, 0] < 0, dump row excluded), so volumes with slot gaps
     never map two bricks onto one row. On contiguous volumes the free rows
-    are [n_active, C-1), in order."""
+    are [n_active, C-1), in order.
+
+    Free of host syncs, as the JAX package writes it: the entries that
+    allocate nothing scatter onto one pad entry past the end of the brick
+    map and of the coords (its ``mode="drop"``), which is sliced off; the
+    state tensors are written in place, so a captured frame keeps their
+    addresses."""
     C = vol.capacity
     dev = cand.device
+    bm = vol.brick_map.view(-1)
+    nbtot = bm.shape[0]
     ok_c = cand >= 0
     safe = torch.clamp(cand, min=0).long()
-    is_new = ok_c & (vol.brick_map.view(-1)[safe] < 0)
+    is_new = ok_c & (bm[safe] < 0)
     rank = torch.cumsum(is_new, 0, dtype=torch.int32) - 1
     n_new = is_new.sum(dtype=torch.int32)
 
@@ -262,10 +270,13 @@ def _allocate_from_list(vol: BrickVolume, cand) -> None:
         C, dtype=torch.int32, device=dev)
     slots = free_rows[torch.clamp(rank, 0, C).long()]
     ok = is_new & (rank < n_free)
-    sel = torch.nonzero(ok).squeeze(1)  # host sync: the allocation count
-    vol.brick_map.view(-1)[safe[sel]] = slots[sel]
-    vol.coords[slots[sel].long()] = _brick_coords(safe[sel].to(torch.int32),
-                                                  vol.bricks_per_axis)
+    bm_pad = torch.cat([bm, bm.new_zeros(1)])
+    bm_pad[torch.where(ok, safe, nbtot)] = torch.where(ok, slots, 0)
+    bm.copy_(bm_pad[:nbtot])
+    coords_pad = torch.cat([vol.coords, vol.coords.new_zeros((1, 3))])
+    bc = _brick_coords(safe, vol.bricks_per_axis).to(torch.int32)
+    coords_pad[torch.where(ok, slots, C).long()] = torch.where(ok[:, None], bc, 0)
+    vol.coords.copy_(coords_pad[:C])
     vol.overflowed |= n_new > n_free
     vol.n_active.copy_(live.sum(dtype=torch.int32) + torch.minimum(n_new, n_free))
 
@@ -306,7 +317,9 @@ def _jitter_split_bricks(cfg: TSDFConfig, nb, depth, pose, bids, update_budget: 
     nbtot = nbx * nby * nbz
     dev = depth.device
     mask = torch.zeros((nbtot + 1,), dtype=torch.bool, device=dev)
-    mask[torch.where(bids >= 0, bids, nbtot).long()] = True
+    # index_fill_ takes its value as a kernel argument (a Python value
+    # assigned through an index is copied to the device: a host sync)
+    mask.index_fill_(0, torch.where(bids >= 0, bids, nbtot).long(), True)
     H, W = depth.shape
     rx = div_const(torch.arange(W, dtype=torch.float32, device=dev)[None, :]
                    - cfg.principal_point_x, cfg.focal_length_x)
@@ -322,7 +335,7 @@ def _jitter_split_bricks(cfg: TSDFConfig, nb, depth, pose, bids, update_budget: 
                                       z + (n2 / norm) * scale)
         ix, iy, iz, inb = voxel_index(cfg, wx, wy, wz)
         blin = ((ix // B) * nby + (iy // B)) * nbz + (iz // B)
-        mask[torch.where(valid & inb, blin, nbtot).reshape(-1).long()] = True
+        mask.index_fill_(0, torch.where(valid & inb, blin, nbtot).reshape(-1).long(), True)
     bids, n_band = _compact(mask[:-1], torch.arange(nbtot, dtype=torch.int32, device=dev),
                             update_budget)
     return bids, n_band, n_band > update_budget
@@ -384,7 +397,8 @@ def frame_update_list(vol: BrickVolume, depth, pose_inv, update_budget: int,
 def integrate_bricks(vol: BrickVolume, depth, pose, rgb=None,
                      update_budget: int = 1 << 13,
                      use_kernel: Optional[bool] = None,
-                     split_generator: Optional[torch.Generator] = None) -> BrickVolume:
+                     split_generator: Optional[torch.Generator] = None,
+                     graph: Optional[bool] = None) -> BrickVolume:
     """Fuse one depth frame into the brick volume, IN PLACE; returns `vol`.
 
     depth [H, W] (NaN = missing), pose [4, 4] camera-to-volume, rgb
@@ -394,11 +408,30 @@ def integrate_bricks(vol: BrickVolume, depth, pose, rgb=None,
     use_kernel: None = the CUDA kernel on the card and the plain engine on
     the CPU; False = the plain engine anywhere. split_generator: the
     jitter's random source when num_random_splits > 1 (see
-    :func:`frame_update_list`)."""
+    :func:`frame_update_list`). graph: None = on the card, the frame's CUDA
+    graph (:mod:`.graph`; captured at the first frame of this volume and
+    these settings, which runs as its warm-up, then replayed), eagerly on
+    the CPU; False = eagerly anywhere; True on the CPU raises. Both routes
+    run the same program and give the same bits."""
+    from .graph import integrate_graphed, resolve_graph
+
     dev = vol.device
     kernel = resolve_use_kernel(use_kernel, dev)
+    if resolve_graph(graph, dev):
+        integrate_graphed(vol, depth, pose, rgb, update_budget, kernel, split_generator)
+        return vol
     depth = torch.as_tensor(depth, dtype=torch.float32, device=dev)
     pose = torch.as_tensor(pose, dtype=torch.float32, device=dev)
+    fuse_frame(vol, depth, pose, rgb, update_budget, kernel, split_generator)
+    return vol
+
+
+def fuse_frame(vol: BrickVolume, depth, pose, rgb, update_budget: int, kernel: bool,
+               split_generator: Optional[torch.Generator]) -> None:
+    """One frame on device tensors, in place: activation, allocation and
+    the batched update. Fixed shapes and no host sync (the graph of
+    :mod:`.graph` captures it; tests/test_torch_graph.py records its ops),
+    every state update in place."""
     pose_inv = rigid_inverse(pose)
     bx, by, bz, slot_ok, slots, overflow = frame_update_list(
         vol, depth, pose_inv, update_budget, pose, split_generator)
@@ -406,14 +439,13 @@ def integrate_bricks(vol: BrickVolume, depth, pose, rgb=None,
                      vol.sdf, vol.weight, vol.M, vol.nsample, vol.color,
                      depth, pose_inv, rgb, kernel)
     vol.overflowed |= overflow
-    return vol
 
 
 def integrate_bricks_sequence(vol: BrickVolume, depths, poses, rgbs=None,
                               update_budget: int = 1 << 13,
                               use_kernel: Optional[bool] = None,
-                              split_generator: Optional[torch.Generator] = None
-                              ) -> BrickVolume:
+                              split_generator: Optional[torch.Generator] = None,
+                              graph: Optional[bool] = None) -> BrickVolume:
     """Fuse a sequence of frames ([N, H, W] depths, [N, 4, 4] poses,
     optional [N, H, W, 3] rgbs) in order, IN PLACE; equal to calling
     :func:`integrate_bricks` per frame with the same split_generator.
@@ -421,13 +453,33 @@ def integrate_bricks_sequence(vol: BrickVolume, depths, poses, rgbs=None,
     With num_random_splits > 1 and no split_generator, one generator seeded
     0 on the volume's device serves the whole sequence, so every frame
     draws its own jitter (the JAX package splits one key into per-frame
-    keys)."""
-    if vol.config.num_random_splits > 1 and split_generator is None:
-        split_generator = torch.Generator(device=vol.device).manual_seed(0)
+    keys).
+
+    graph: as for :func:`integrate_bricks`. On the card the frames replay
+    the frame's graph, their inputs copied on the device from one upload
+    of the whole sequence, with no host sync between frames: the host
+    queues the trajectory ahead of the card, as the JAX package's one
+    ``lax.scan`` program runs it."""
+    from .graph import integrate_graphed, resolve_graph
+
+    dev = vol.device
+    if not resolve_graph(graph, dev):
+        if vol.config.num_random_splits > 1 and split_generator is None:
+            split_generator = torch.Generator(device=dev).manual_seed(0)
+        for i in range(len(depths)):
+            integrate_bricks(vol, depths[i], poses[i],
+                             None if rgbs is None else rgbs[i], update_budget,
+                             use_kernel, split_generator, graph=False)
+        return vol
+    kernel = resolve_use_kernel(use_kernel, dev)
+    depths = torch.as_tensor(depths, dtype=torch.float32, device=dev)
+    poses = torch.as_tensor(poses, dtype=torch.float32, device=dev)
+    if rgbs is not None:
+        rgbs = torch.as_tensor(rgbs, dtype=torch.float32, device=dev)
     for i in range(len(depths)):
-        integrate_bricks(vol, depths[i], poses[i],
-                         None if rgbs is None else rgbs[i], update_budget,
-                         use_kernel, split_generator)
+        # the graph's own generator (no split_generator) is seeded 0 once
+        integrate_graphed(vol, depths[i], poses[i], None if rgbs is None else rgbs[i],
+                          update_budget, kernel, split_generator, reseed=i == 0)
     return vol
 
 

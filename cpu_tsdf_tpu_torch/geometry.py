@@ -108,7 +108,8 @@ def rigid_inverse(m):
     (differentiable)."""
     Rt = m[:3, :3].T
     t = -(Rt @ m[:3, 3])
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=m.dtype, device=m.device)
+    # made on the device: a row copied from the host would be a host sync
+    bottom = torch.eye(4, dtype=m.dtype, device=m.device)[3:]
     return torch.cat([torch.cat([Rt, t[:, None]], 1), bottom], 0)
 
 

@@ -109,22 +109,62 @@ def rays_from_channels(vol, origins, dirs, ch, colored: bool) -> dict:
 
 
 def render_view(vol, pose, downsample_by: int = 1, max_steps: int = 512,
-                colored: bool = False, use_kernel: Optional[bool] = None) -> RenderResult:
+                colored: bool = False, use_kernel: Optional[bool] = None,
+                graph: Optional[bool] = None) -> RenderResult:
     """Render the volume from a camera pose (camera-to-volume [4, 4]).
 
     `vol` is a dense or brick volume, packed here into the render view
     (``bricks.pack_render``), or an already packed ``PackedRenderVolume``,
     which amortizes the packing across renders of one volume state.
     use_kernel: None = the CUDA kernel on the card and the plain march on
-    the CPU; False = the plain march anywhere."""
+    the CPU; False = the plain march anywhere. graph: None = on the card,
+    the render's CUDA graph (``graph.render_graphed``: captured at the
+    first render of this volume and these settings, which runs as its
+    warm-up, then replayed; the result is fresh tensors) of the kernel
+    route, unless the volume or the pose requires grad, which takes the
+    eager differentiable route; eagerly on the CPU and with the plain
+    march; False = eagerly anywhere; True where the graph cannot run (the
+    CPU, the plain march, an input that requires grad) raises."""
+    from ..graph import render_graphed, resolve_graph
+
     dev = vol.device
     kernel = resolve_use_kernel(use_kernel, dev)
-    cfg = vol.config
     pose = torch.as_tensor(pose, dtype=torch.float32, device=dev)
+    use_graph = resolve_graph(graph, dev)
+    if use_graph and (not kernel or _needs_grad(vol, pose)):
+        if graph:
+            raise ValueError("render_view: the render graph is the kernel march's forward "
+                             "(the plain march reads its done mask on the host, and a "
+                             "gradient needs the eager route)")
+        use_graph = False
+    if use_graph:
+        return render_graphed(vol, pose, downsample_by, max_steps, colored, kernel)
+    return _render(vol, pose, downsample_by, max_steps, colored, kernel)
+
+
+def _needs_grad(vol, pose) -> bool:
+    return torch.is_grad_enabled() and (pose.requires_grad or any(
+        isinstance(t := getattr(vol, f.name), torch.Tensor) and t.requires_grad
+        for f in dataclasses.fields(vol)))
+
+
+def _render(vol, pose, downsample_by: int, max_steps: int, colored: bool,
+            kernel: bool) -> RenderResult:
+    """The render on device tensors: with the kernel march, fixed shapes
+    and no host sync (the graph of ``graph.render_graphed`` captures it)."""
+    cfg = vol.config
     origins, dirs = camera_rays(cfg, pose, downsample_by)
     r = render_rays(vol, origins, dirs, max_steps, colored, kernel)
     return assemble_view(cfg, pose, r, cfg.image_height // downsample_by,
                          cfg.image_width // downsample_by)
+
+
+def fresh_result(r: RenderResult) -> RenderResult:
+    """A copy of a render result in new tensors (depth a view of the
+    points, as render_view gives it)."""
+    points = r.points.clone()
+    return RenderResult(points=points, normals=r.normals.clone(), depth=points[..., 2],
+                        rgb=None if r.rgb is None else r.rgb.clone())
 
 
 def assemble_view(cfg: TSDFConfig, pose, r: dict, H: int, W: int) -> RenderResult:

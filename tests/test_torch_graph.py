@@ -1,0 +1,221 @@
+"""The graphed frame and render (cpu_tsdf_tpu_torch/graph.py), on the CPU.
+
+A CUDA graph replays a fixed program: a frame or a render that reads a
+value back to the host, or sizes a tensor from one, cannot be captured.
+These tests record the aten ops of one eager frame and of the render glue
+with a TorchDispatchMode and refuse every op that syncs with the host: a
+nonzero, a scalar read (``.item()``, ``int(t)``, ``bool(t)``), a masked
+select, a unique, a boolean-mask index, and a Python value moved to the
+device inside the program (``lift_fresh``; on a card an assignment of a
+Python value through an index copies it from the host). They also hold
+the sync-free allocation against the JAX package's exactly, the eager
+sequence against the JAX package's ``lax.scan`` sequence, and the graph
+switch on the CPU. The graph itself runs only on the card
+(tests/test_torch_kernels.py).
+"""
+
+import collections
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from cpu_tsdf_tpu import bricks as jb
+from cpu_tsdf_tpu_torch import bricks as tb
+from cpu_tsdf_tpu_torch import graph as tg
+from cpu_tsdf_tpu_torch import render_view
+from cpu_tsdf_tpu_torch.convert import brick_volume_from_arrays
+from cpu_tsdf_tpu_torch.ops import raycast_kernel as rk
+from cpu_tsdf_tpu_torch.ops.raycast import camera_rays
+
+from test_fusion import tilted_pose
+from test_torch_bricks import JAX_FIELDS, POSES, _scene, assert_volumes_match, jax_arrays
+
+# ops that read a device value back to the host, or size a tensor from one
+SYNC_OPS = ("aten.nonzero", "aten._local_scalar_dense", "aten.masked_select",
+            "aten.unique", "aten._unique", "aten.is_nonzero", "aten.lift_fresh")
+INDEX_OPS = ("aten.index.Tensor", "aten.index_put_.default", "aten.index_put.default",
+             "aten._index_put_impl_.default")
+
+
+class SyncRecorder(TorchDispatchMode):
+    """Counts the aten ops run under it; `syncs` lists those that sync with
+    the host (SYNC_OPS, an index by a boolean mask, a copy to another
+    device)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = collections.Counter()
+        self.syncs = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = str(func)
+        self.ops[name] += 1
+        if name.startswith(SYNC_OPS):
+            self.syncs.append(name)
+        if name in INDEX_OPS and any(i is not None and i.dtype in (torch.bool, torch.uint8)
+                                     for i in args[1]):
+            self.syncs.append(f"{name} by a boolean mask")
+        if name == "aten._to_copy.default" and "device" in (kwargs or {}) \
+                and kwargs["device"] != args[0].device:
+            self.syncs.append(f"{name} to {kwargs['device']}")
+        return func(*args, **(kwargs or {}))
+
+
+def test_recorder_catches_syncs():
+    x = torch.arange(6.0)
+    with SyncRecorder() as rec:
+        torch.nonzero(x > 2)
+        x[x > 3]
+        x[torch.tensor([0, 1])] = 5.0
+        bool(x.sum() > 0)
+        int(x.sum())
+        x.unique()
+    want = ["aten.nonzero", "aten.index.Tensor by a boolean mask", "aten.lift_fresh",
+            "aten._local_scalar_dense", "aten._unique"]
+    assert all(any(s.startswith(w) for s in rec.syncs) for w in want), rec.syncs
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("B", [4, 8, 16])
+def test_frame_has_no_host_sync(small_cfg, B, splits):
+    """Two eager integrate_bricks frames with color (the second sees live
+    bricks in its carve pass and its allocation) run no op that syncs with
+    the host, at bricks of 4, 8 and 16, with and without the jitter."""
+    _, cfg, depth, rgb = _scene(small_cfg.with_updates(num_random_splits=splits), "RGB")
+    budget = 4096 if B == 4 else 1024
+    vol = tb.make_brick_volume(cfg, B, 2 * budget, device="cpu")
+    depth_t, rgb_t = torch.as_tensor(depth), torch.as_tensor(rgb)
+    poses = [torch.as_tensor(p, dtype=torch.float32) for p in POSES[:2]]
+    with SyncRecorder() as rec:
+        for p in poses:
+            tb.integrate_bricks(vol, depth_t, p, rgb_t, budget)
+    assert rec.syncs == [], rec.syncs
+    assert sum(rec.ops.values()) > 1000 and int(vol.n_active) > 0
+    assert not bool(vol.overflowed)
+
+
+def test_render_glue_has_no_host_sync(small_cfg, monkeypatch):
+    """The render glue (pack_render, camera_rays, the color gather,
+    assemble_view) runs no op that syncs with the host. The plain march
+    runs outside the recorder: its early exit reads the done mask, and on
+    the card the kernel takes its place."""
+    _, cfg, depth, rgb = _scene(small_cfg, "RGB")
+    vol = tb.make_brick_volume(cfg, 8, 2048, device="cpu")
+    for p in POSES:
+        tb.integrate_bricks(vol, depth, p, rgb, 1024)
+    pose = torch.as_tensor(POSES[1], dtype=torch.float32)
+    want = render_view(vol, pose, colored=True)
+    origins, dirs = camera_rays(cfg, pose)
+    ch = rk.march_plain(tb.pack_render(vol), origins.contiguous(), dirs.contiguous())
+    monkeypatch.setattr(rk, "march_plain", lambda *args, **kw: ch)
+    with SyncRecorder() as rec:
+        got = render_view(vol, pose, colored=True)
+    assert rec.syncs == [], rec.syncs
+    assert int((~got.depth.isnan()).sum()) > 300
+    for name in ("points", "normals", "depth", "rgb"):
+        assert torch.equal(getattr(got, name).nan_to_num(), getattr(want, name).nan_to_num())
+
+
+def _gapped(jcfg, capacity, live_rows):
+    """A JAX brick volume whose rows `live_rows` hold bricks (slot gaps
+    between them), as merge_sharded leaves one."""
+    jv = jb.make_brick_volume(jcfg, 8, capacity)
+    nbx, nby, nbz = jv.bricks_per_axis
+    bids = np.arange(len(live_rows)) * 37 + 5
+    coords = np.asarray(jv.coords).copy()
+    bm = np.asarray(jv.brick_map).copy().reshape(-1)
+    for row, b in zip(live_rows, bids):
+        coords[row] = (b // (nby * nbz), (b // nbz) % nby, b % nbz)
+        bm[b] = row
+    return dataclasses.replace(jv, coords=jnp.asarray(coords),
+                               brick_map=jnp.asarray(bm.reshape(nbx, nby, nbz)),
+                               n_active=jnp.asarray(len(live_rows), jnp.int32))
+
+
+@pytest.mark.parametrize("capacity,n_new", [(64, 20), (16, 20)], ids=["gaps", "overflow"])
+def test_allocate_from_list_matches_jax(small_cfg, capacity, n_new):
+    """The sync-free allocation against the JAX package's, exactly
+    (brick_map, coords, n_active, overflowed): a volume with slot gaps
+    (rows 0, 2, 3, 7, 9 live), a candidate list of new bricks, already
+    allocated ones and padding; at capacity 16 the new bricks outnumber the
+    free rows."""
+    from cpu_tsdf_tpu_torch.config import TSDFConfig
+
+    jv = _gapped(small_cfg, capacity, [0, 2, 3, 7, 9])
+    cand = np.full(64, -1, np.int32)
+    cand[:n_new] = np.arange(n_new) * 11 + 300           # new bricks
+    cand[n_new:n_new + 3] = (5, 42, 79)                  # already allocated
+    cand = np.random.default_rng(1).permutation(cand)
+    tv = brick_volume_from_arrays(TSDFConfig.from_json(small_cfg.to_json()),
+                                  jax_arrays(jv), device="cpu")
+    j = jax_arrays(jb._allocate_from_list(jv, jnp.asarray(cand)))
+    cand = torch.as_tensor(cand)
+    with SyncRecorder() as rec:
+        tb._allocate_from_list(tv, cand)
+    assert rec.syncs == [], rec.syncs
+    for k in ("brick_map", "coords", "n_active", "overflowed"):
+        np.testing.assert_array_equal(getattr(tv, k).numpy(), j[k], err_msg=k)
+    assert bool(tv.overflowed) == (capacity == 16)
+    assert int(tv.n_active) == min(5 + n_new, capacity - 1)
+
+
+def test_eager_sequence_with_color_matches_jax(small_cfg):
+    """The eager integrate_bricks_sequence with color against the JAX
+    package's lax.scan sequence (the tolerances of
+    test_integrate_bricks_matches_jax)."""
+    jcfg, cfg, depth, rgb = _scene(small_cfg, "RGB")
+    poses = np.stack(POSES).astype(np.float32)
+    n = len(poses)
+    jv = jb.integrate_bricks_sequence(jb.make_brick_volume(jcfg, 8, 2048),
+                                      jnp.asarray(np.stack([depth] * n)), jnp.asarray(poses),
+                                      jnp.asarray(np.stack([rgb] * n)), 1024)
+    tv = tb.integrate_bricks_sequence(tb.make_brick_volume(cfg, 8, 2048, device="cpu"),
+                                      np.stack([depth] * n), poses, np.stack([rgb] * n), 1024)
+    assert int(jv.n_active) > 50 and not bool(jv.overflowed)
+    assert_volumes_match(tv, jv, "RGB")
+
+
+def test_graph_switch_on_the_cpu(small_cfg):
+    """graph=True on CPU tensors raises in every entry point; graph=None on
+    the CPU runs the eager route (the same bits as graph=False)."""
+    _, cfg, depth, rgb = _scene(small_cfg, "RGB")
+    vols = [tb.make_brick_volume(cfg, 8, 2048, device="cpu") for _ in range(2)]
+    with pytest.raises(ValueError):
+        tb.integrate_bricks(vols[0], depth, POSES[0], rgb, 1024, graph=True)
+    with pytest.raises(ValueError):
+        tb.integrate_bricks_sequence(vols[0], depth[None], POSES[:1], rgb[None], 1024,
+                                     graph=True)
+    assert int(vols[0].n_active) == 0
+    for p in POSES:
+        tb.integrate_bricks(vols[0], depth, p, rgb, 1024)
+        tb.integrate_bricks(vols[1], depth, p, rgb, 1024, graph=False)
+    for k in JAX_FIELDS:
+        a, b = getattr(vols[0], k), getattr(vols[1], k)
+        assert torch.equal(a.nan_to_num(), b.nan_to_num()), k
+    with pytest.raises(ValueError):
+        render_view(vols[0], POSES[0], graph=True)
+    a = render_view(vols[0], POSES[0], colored=True)
+    b = render_view(vols[0], POSES[0], colored=True, graph=False)
+    assert torch.equal(a.points.nan_to_num(), b.points.nan_to_num())
+    assert tg.resolve_graph(None, torch.device("cpu")) is False
+    assert tg.resolve_graph(None, torch.device("cuda")) is True
+    assert tg.resolve_graph(False, torch.device("cuda")) is False
+
+
+def test_state_key_follows_the_volume(small_cfg):
+    """A graph's key changes with any state tensor of the volume (a
+    replaced tensor, a new volume) and with the config, and not with the
+    values in the tensors."""
+    _, cfg, depth, _ = _scene(small_cfg, None)
+    vol = tb.make_brick_volume(cfg, 8, 256, device="cpu")
+    key = tg.state_key(vol)
+    tb.integrate_bricks(vol, depth, tilted_pose(), None, 1024)
+    assert tg.state_key(vol) == key          # the frame updates in place
+    vol.sdf = vol.sdf.clone()
+    assert tg.state_key(vol) != key
+    other = tb.make_brick_volume(cfg.with_updates(max_weight=7.0), 8, 256, device="cpu")
+    assert tg.state_key(other)[1:3] != key[1:3]

@@ -630,3 +630,132 @@ def test_relay_march_kernel_matches_plain(cuda_device):
         assert segments >= 2 and int((one[3] > 0).sum()) > 1000
         assert torch.equal(k, p) and torch.equal(k, one), D
     assert rk.launches["raycast"] >= 4
+
+
+# ---------------------------------------------------------------------------
+# the graphed frame, sequence and render (cpu_tsdf_tpu_torch/graph.py)
+# ---------------------------------------------------------------------------
+
+STATE = ("sdf", "weight", "M", "nsample", "color", "brick_map", "coords", "n_active",
+         "overflowed")
+
+
+def assert_states_equal(a, b, what):
+    """Every state tensor bit-equal (NaN where NaN)."""
+    for name in STATE:
+        x, y = getattr(a, name), getattr(b, name)
+        if x.is_floating_point():
+            assert torch.equal(x.isnan(), y.isnan()), (what, name)
+            x, y = x.nan_to_num(), y.nan_to_num()
+        assert torch.equal(x, y), (what, name)
+
+
+def _graph_frames(dev, cfg, n=3):
+    return [(torch.as_tensor(p, dtype=torch.float32, device=dev), torch.as_tensor(d, device=dev),
+             torch.as_tensor(c, device=dev)) for p, d, c in _frames(cfg, n)]
+
+
+@pytest.mark.parametrize("B,splits", [(8, 1), (4, 1), (16, 1), (8, 3)])
+def test_graphed_frames_equal_eager(cuda_device, B, splits):
+    """On a 128^3 volume, 3 colored frames: the graphed sequence, graphed
+    per-frame calls and eager calls give bit-equal state (sdf, weight, M,
+    nsample, color, brick_map, coords, n_active, overflowed) at bricks of 4,
+    8 and 16, and with the jitter (num_random_splits = 3: a per-frame call
+    draws the seed-0 jitter every frame, a sequence fresh jitter a frame,
+    by either route). The fusion kernel counts one launch a frame on the
+    graphed routes too."""
+    from cpu_tsdf_tpu_torch import graph as tg
+
+    cfg = CFG.with_updates(integrate_color=True, color_mode="RGB", num_random_splits=splits)
+    capacity, budget = _sizes(cfg, B)
+    frames = _graph_frames(cuda_device, cfg)
+    vols = {k: tb.make_brick_volume(cfg, B, capacity, device=cuda_device)
+            for k in ("seq_graph", "seq_eager", "frame_graph", "frame_eager")}
+    depths, poses, rgbs = (torch.stack([f[i] for f in frames]) for i in (1, 0, 2))
+    fk.launches["fusion"] = 0
+    tb.integrate_bricks_sequence(vols["seq_graph"], depths, poses, rgbs, budget)
+    assert fk.launches["fusion"] == 3
+    tb.integrate_bricks_sequence(vols["seq_eager"], depths, poses, rgbs, budget, graph=False)
+    for pose, depth, rgb in frames:
+        tb.integrate_bricks(vols["frame_graph"], depth, pose, rgb, budget)
+        tb.integrate_bricks(vols["frame_eager"], depth, pose, rgb, budget, graph=False)
+    torch.cuda.synchronize()
+    assert fk.launches["fusion"] == 12
+    assert int(vols["seq_graph"].n_active) > 100 and not bool(vols["seq_graph"].overflowed)
+    assert_states_equal(vols["seq_graph"], vols["seq_eager"], "sequence")
+    assert_states_equal(vols["frame_graph"], vols["frame_eager"], "frames")
+    if splits == 1:
+        assert_states_equal(vols["seq_graph"], vols["frame_graph"], "sequence and frames")
+    assert all(s["pool_mb"] >= 0 and s["capture_ms"] > 0 for s in tg.stats())
+
+
+def test_graph_recaptures_after_volume_replaced(cuda_device):
+    """A volume replaced (its state tensors copied, as load_checkpoint
+    gives a new volume) gets a graph of its own: the new frames land in the
+    new volume, equal to the eager route's, and leave the old one as it
+    was."""
+    cfg = CFG.with_updates(integrate_color=True, color_mode="RGB")
+    frames = _graph_frames(cuda_device, cfg, 4)
+    old = tb.make_brick_volume(cfg, 8, 4096, device=cuda_device)
+    ref = tb.make_brick_volume(cfg, 8, 4096, device=cuda_device)
+    for pose, depth, rgb in frames[:2]:
+        tb.integrate_bricks(old, depth, pose, rgb, 2048)
+        tb.integrate_bricks(ref, depth, pose, rgb, 2048, graph=False)
+    new = dataclasses.replace(old, **{name: getattr(old, name).clone() for name in STATE})
+    kept = dataclasses.replace(old, **{name: getattr(old, name).clone() for name in STATE})
+    for pose, depth, rgb in frames[2:]:
+        tb.integrate_bricks(new, depth, pose, rgb, 2048)
+        tb.integrate_bricks(ref, depth, pose, rgb, 2048, graph=False)
+    torch.cuda.synchronize()
+    assert_states_equal(new, ref, "replaced volume")
+    assert_states_equal(old, kept, "old volume")
+    assert not torch.equal(new.weight, old.weight)
+
+
+def test_graphed_render_equals_eager(cuda_device):
+    """The graphed render_view (a brick volume and its packed view,
+    colored) equals the eager one bit for bit; a render's result is not
+    overwritten by the next render; each render launches the march once."""
+    vol = _render_volume(cuda_device, {}, 8)
+    packed = tb.pack_render(vol)
+    poses = [torch.as_tensor(orbit_pose(a), dtype=torch.float32, device=cuda_device)
+             for a in (0.3, 0.9, 1.5)]
+    for v in (vol, packed):
+        rk.launches["raycast"] = 0
+        graphed = [rc.render_view(v, p, colored=True) for p in poses]
+        assert rk.launches["raycast"] == len(poses)
+        eager = [rc.render_view(v, p, colored=True, graph=False) for p in poses]
+        torch.cuda.synchronize()
+        for g, e in zip(graphed, eager):
+            assert int((~e.depth.isnan()).sum()) > 1000
+            for name in ("points", "normals", "depth", "rgb"):
+                x, y = getattr(g, name), getattr(e, name)
+                assert torch.equal(x.isnan(), y.isnan()) and torch.equal(
+                    x.nan_to_num(), y.nan_to_num()), name
+        assert not torch.equal(graphed[0].depth.nan_to_num(), graphed[1].depth.nan_to_num())
+    with pytest.raises(ValueError):
+        rc.render_view(vol, poses[0], use_kernel=False, graph=True)
+
+
+def test_frames_and_renders_do_not_sync(cuda_device):
+    """Under torch.cuda.set_sync_debug_mode("error"), an eager frame, a
+    graphed frame and a graphed render raise nothing: no op of theirs waits
+    for the card."""
+    cfg = CFG.with_updates(integrate_color=True, color_mode="RGB")
+    frames = _graph_frames(cuda_device, cfg, 3)
+    vols = [tb.make_brick_volume(cfg, 8, 4096, device=cuda_device) for _ in range(2)]
+    pose, depth, rgb = frames[0]
+    tb.integrate_bricks(vols[0], depth, pose, rgb, 2048, graph=False)
+    tb.integrate_bricks(vols[1], depth, pose, rgb, 2048)
+    rc.render_view(vols[1], pose, colored=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for pose, depth, rgb in frames[1:]:
+            tb.integrate_bricks(vols[0], depth, pose, rgb, 2048, graph=False)
+            tb.integrate_bricks(vols[1], depth, pose, rgb, 2048)
+            rc.render_view(vols[1], pose, colored=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert_states_equal(vols[0], vols[1], "eager and graphed frames")
