@@ -28,8 +28,9 @@ Phases (any failure raises and exits non-zero before the last line):
      stack's; emission: the real cube list with the identity and a moved
      global transform, triangles and cube references exact, vertices
      within 1e-6 with the differing rows logged), with CUDA-event times of
-     both; the extraction's breakdown (candidates, corner halo, scan +
-     sync + emission + colors, copy to host) comes before it;
+     both; the extraction's breakdown (brick stats and candidates, corner
+     halo, scan + emission + colors + the batch's sync, the call with
+     hints and with the default budgets, copy to host) comes before it;
   5. whole-path parity: the first 8 frames through the kernels and through
      the plain engine on the card, volumes and meshes compared;
   6. the render path on the phase-2 volume: pack_render, then render_view
@@ -117,10 +118,31 @@ Phases (any failure raises and exits non-zero before the last line):
      frame ms (host clock, the first frame apart: it captures), renders/s,
      each graph's capture ms, pool MB and launches a replay go to a
      {"graphs": ...} line.
+ 12. the budgeted extraction (chunks of 2048 slots, budgets, hints) on the
+     phase-2 volume: the checked route's triangles and colors bit-equal to
+     the single pass over every candidate brick (exact sizes, two host
+     syncs: the route before the chunks), its batches, budgets and hints;
+     the unchecked route (check=False) with those hints through its CUDA
+     graph (the default) and eagerly, equal in tri_valid, num_triangles,
+     overflowed and the valid rows, the valid triangles the checked
+     route's, each MC kernel counted once a live chunk a call, an eager
+     call under torch.cuda.set_sync_debug_mode("error"), a quarter of each
+     budget setting overflowed and the checked route recovering the mesh;
+     steady ms of both routes and of the checked call with hints (host
+     clock, the first call apart), busy shares, the graph's capture ms and
+     pool MB. Then phase 8's refine step and residual graphed and eager,
+     bit-equal at three step scales, with steady ms and busy shares; and
+     organize_cloud graphed and eager on phase 7's 20 PCDs, bit-equal, with
+     the median ms a frame. The emission under a triangle budget of a third
+     of the mesh is held against its plain version's truncation in phases
+     4 and 10 (``budget_case`` in the emission's kernel record); phase 7's
+     mesh.ply is held against the single pass too. An {"extraction": ...}
+     line, with phase 3's extraction breakdown.
 
 Output: progress on stderr; on stdout the differentiable renders' numbers
 {"render_grad": {...}}, the CLI path's {"cli": {...}}, {"refine": {...}},
-{"parallel": {...}}, {"brick_sizes": {...}}, {"graphs": {...}}, a line of kernel
+{"parallel": {...}}, {"brick_sizes": {...}}, {"graphs": {...}},
+{"extraction": {...}}, a line of kernel
 records {"kernels": [...]} (each with its launches on every path and its
 times at the other brick sizes), the
 nvidia-smi line, and last
@@ -358,7 +380,7 @@ def mc_phase(torch, mc, vol, main_launches, timer):
     err = 0.0
     for what, v in (("identity", vol), ("rotated", dataclasses.replace(vol, global_transform=moved))):
         vk, tk = mc.emit_triangles(v, cand, count, cube, corners, off, n_tri)
-        vp, tp = mc._emit_plain(v, cand, count, cube, corners)
+        vp, tp = mc._emit_plain(v, cand, count, cube, corners, off, n_tri)
         if vk.shape != vp.shape or not torch.equal(tk, tp):
             raise AssertionError(f"emission kernel ({what}): triangles or cube references "
                                  f"differ ({tuple(vk.shape)} vs {tuple(vp.shape)})")
@@ -371,7 +393,8 @@ def mc_phase(torch, mc, vol, main_launches, timer):
             raise AssertionError(f"emission kernel vertices differ by {verr}")
     t_k = timer.ms(lambda: mc.emit_triangles(vol, cand, count, cube, corners, off, n_tri),
                    spin=True)
-    t_p = timer.ms(lambda: mc._emit_plain(vol, cand, count, cube, corners), spin=True)
+    t_p = timer.ms(lambda: mc._emit_plain(vol, cand, count, cube, corners, off, n_tri),
+                   spin=True)
     # operations: per triangle 3 vertices of 17 (interpolation) + 18
     # (transform); per cube 8 scalings and 9 for its centre
     emit = record("mc_emit", "cpu_tsdf_tpu_torch/csrc/mc_emit.cu",
@@ -379,7 +402,75 @@ def mc_phase(torch, mc, vol, main_launches, timer):
                   mc.bytes_moved_emit(K, n_cubes, n_tri), n_tri * 105 + n_cubes * 17)
     log(f"emission ({B}^3 bricks): {n_tri} triangles, kernel {t_k:.4f} ms, plain "
         f"{t_p:.4f} ms; bound {emit['bound_ms']:.5f} ms ({mc.bytes_moved_emit(K, n_cubes, n_tri)} bytes)")
+
+    # the emission under a triangle budget of a third of the mesh: the
+    # triangles below it stored, equal to the plain version's truncation
+    # and to the unbounded emission's first rows
+    budget = n_tri // 3
+    vk, tk = mc.emit_triangles(vol, cand, count, cube, corners, off, budget)
+    vp, tp = mc._emit_plain(vol, cand, count, cube, corners, off, budget)
+    full, _ = mc.emit_triangles(vol, cand, count, cube, corners, off, n_tri)
+    if not (torch.equal(tk, tp) and torch.equal(vk, full[:budget])):
+        raise AssertionError(f"emission kernel under a budget of {budget} triangles differs")
+    err_b = float((vk - vp).abs().max())
+    if err_b > 1e-6:
+        raise AssertionError(f"emission kernel under a budget: vertices differ by {err_b}")
+    # the cubes of the bricks whose first triangle lies below the budget
+    cubes_b = int(count[:int((off < budget).sum())].sum())
+    emit["budget_case"] = record(
+        "mc_emit", "cpu_tsdf_tpu_torch/csrc/mc_emit.cu", "cpu_tsdf_tpu/ops/marching_cubes.py:631",
+        main_launches["emit"], err_b,
+        timer.ms(lambda: mc.emit_triangles(vol, cand, count, cube, corners, off, budget),
+                 spin=True),
+        timer.ms(lambda: mc._emit_plain(vol, cand, count, cube, corners, off, budget), spin=True),
+        mc.bytes_moved_emit(K, cubes_b, budget), budget * 105 + cubes_b * 17)
+    emit["budget_case"].update(tri_budget=budget, triangles=n_tri)
+    log(f"emission ({B}^3 bricks) under a budget of {budget} of {n_tri} triangles: the stored "
+        f"rows equal the plain truncation and the unbounded emission's (max err {err_b}); "
+        f"kernel {emit['budget_case']['ms']:.4f} ms, plain {emit['budget_case']['plain_ms']:.4f} "
+        f"ms, bound {emit['budget_case']['bound_ms']:.5f} ms")
     return [halo, emit]
+
+
+def extraction_breakdown(torch, mc, vol, timer) -> dict:
+    """The checked extraction's steps on vol (chunks of 2048 slots, the
+    budgets of a first call's hints), each a median of synchronized runs:
+    brick stats + candidates, the corner halo, the rest of the chunk
+    programs with the batch's host sync, the whole call with the hints and
+    with the default budgets (its retries), the copy to the host."""
+    from cpu_tsdf_tpu_torch.activation import _compact
+
+    chunk, C, dev = min(2048, vol.capacity), vol.capacity, vol.device
+    soup = mc.extract_soup_bricks(vol, 0.5, True)
+    live, hint = soup.live_chunks, soup.budget_hint
+
+    def candidates():
+        stats = mc._brick_stats(vol, live, chunk, 0.5)
+        out = []
+        for s0, (_, kb, _) in zip(live, hint):
+            slots = torch.arange(s0, s0 + chunk, dtype=torch.int32, device=dev)
+            bidx, _ = _compact(mc._candidate_mask(vol, stats, vol.coords[s0:s0 + chunk]),
+                               slots, kb)
+            out.append(torch.where(bidx >= 0, bidx, C))
+        return out
+
+    cands = candidates()
+    res = {"live_chunks": list(live), "budget_hint": [list(h) for h in hint],
+           "triangles": int(soup.num_triangles),
+           "candidates_ms": timer.ms(candidates),
+           "halo_ms": timer.ms(lambda: [mc.corner_halo(vol, c, 0.5) for c in cands]),
+           "checked_hinted_ms": timer.ms(lambda: mc.extract_soup_bricks(
+               vol, 0.5, True, live_chunks=live, budget_hint=hint)),
+           "checked_default_ms": timer.ms(lambda: mc.extract_soup_bricks(vol, 0.5, True)),
+           "to_host_ms": timer.ms(soup.to_numpy)}
+    res["rest_ms"] = res["checked_hinted_ms"] - res["candidates_ms"] - res["halo_ms"]
+    log(f"extraction breakdown (checked route, live chunks {live}, hints {hint}): brick "
+        f"stats + candidates {res['candidates_ms']:.4f} ms; corner halo {res['halo_ms']:.4f} "
+        f"ms; scan + emission + colors + the batch's host sync {res['rest_ms']:.4f} ms; the "
+        f"call with the hints {res['checked_hinted_ms']:.4f} ms, with the default budgets "
+        f"(retries) {res['checked_default_ms']:.4f} ms; copy to host {res['to_host_ms']:.4f} "
+        f"ms ({res['triangles']} triangles)")
+    return res
 
 
 def render_phase(torch, cfg, vol, poses, poses_h, timer):
@@ -655,6 +746,14 @@ def write_pcd_sequence(cfg, dirname, n_frames, radius, seed=11):
                 f.write(" ".join(f"{v:.9g}" for v in row) + "\n")
 
 
+def mc_ran(got: dict, want: dict) -> bool:
+    """The launch counts `got` hold `want` for the other kernels, and the
+    corner halo and the emission ran once each a chunk program of a checked
+    extraction (one or more: a chunk whose budget overflowed runs again)."""
+    return ({k: got[k] for k in want} == want
+            and got["corner_halo"] == got["emit"] >= 1)
+
+
 def sphere_error(ply_path, center, radius):
     """Median |distance to center - radius| of a PLY's vertices, and its
     triangle count."""
@@ -671,7 +770,7 @@ def cli_phase(torch, tmp):
     from cpu_tsdf_tpu_torch import cli
     from cpu_tsdf_tpu_torch.config import TSDFConfig
     from cpu_tsdf_tpu_torch.io import poses as pose_io
-    from cpu_tsdf_tpu_torch.io.checkpoint import checkpoint_meta
+    from cpu_tsdf_tpu_torch.io.checkpoint import checkpoint_meta, load_any
     from cpu_tsdf_tpu_torch.io.ply import load_ply
     from cpu_tsdf_tpu_torch.log import get_logger
     from cpu_tsdf_tpu_torch.ops import fusion_kernel as fk
@@ -716,9 +815,9 @@ def cli_phase(torch, tmp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = counts()
-    want = {"fusion": CLI_FRAMES, "raycast": CLI_FRAMES // 8, "corner_halo": 1, "emit": 1}
+    want = {"fusion": CLI_FRAMES, "raycast": CLI_FRAMES // 8}
     log(f"integrate --sparse: rc {rc}, {wall:.3f} s wall; launches {got}")
-    if rc != 0 or got != want:
+    if rc != 0 or not mc_ran(got, want):
         raise AssertionError(f"integrate --sparse: rc {rc}, launches {got}, want {want}")
     sparse_launches = got
     npz = os.path.join(out, "volume.npz")
@@ -754,8 +853,13 @@ def cli_phase(torch, tmp):
         f"vertices bit-equal {np.array_equal(v1, v2)}; launches {counts()}")
     if rc != 0 or f1.shape != f2.shape or not np.array_equal(v1, v2):
         raise AssertionError("tsdf2mesh does not reproduce the integrate mesh")
-    if min(mc.launches.values()) < 1:
+    if not mc_ran(counts(), {"fusion": 0, "raycast": 0}):
         raise AssertionError(f"tsdf2mesh did not run the MC kernels: {counts()}")
+    # and both are the single pass's mesh (the route before the budgeted chunks)
+    ref_v, _ = single_pass(torch, mc, load_any(npz, device=torch.device("cuda")), 0.0)
+    if not np.array_equal(ref_v.cpu().numpy().reshape(-1, 3), v1):
+        raise AssertionError("the CLI's mesh.ply differs from the single pass's mesh")
+    log("integrate --sparse: mesh.ply is the single pass's mesh, bit for bit")
 
     # a sparse run at bricks of 16^3 and its tsdf2mesh: the kernels at
     # another brick size through the CLI (the capacity holds the same voxels)
@@ -768,7 +872,7 @@ def cli_phase(torch, tmp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = counts()
-    want = {"fusion": CLI_DENSE_FRAMES, "raycast": 0, "corner_halo": 1, "emit": 1}
+    want = {"fusion": CLI_DENSE_FRAMES, "raycast": 0}
     npz = os.path.join(out, "volume.npz")
     with np.load(npz) as z:
         overflowed = bool(z["overflowed"])
@@ -786,12 +890,12 @@ def cli_phase(torch, tmp):
         f"{wall:.3f} s wall; brick size in the npz {brick}, overflowed {overflowed}; {n_tri} "
         f"triangles, median |r - {CLI_RADIUS}| {err * 1e3:.4f} mm; launches {got}; "
         f"tsdf2mesh rc {rc2}, vertices bit-equal {np.array_equal(v1, v2)}, launches {got2}")
-    if rc != 0 or got != want or brick != 16 or overflowed:
+    if rc != 0 or not mc_ran(got, want) or brick != 16 or overflowed:
         raise AssertionError(f"integrate --brick-size 16: rc {rc}, launches {got}, want {want}")
     if err >= HALF_CELL_M or n_tri < 1000:
         raise AssertionError("integrate --brick-size 16: the mesh is off the sphere")
     if rc2 != 0 or f1.shape != f2.shape or not np.array_equal(v1, v2) or \
-            got2 != {"fusion": 0, "raycast": 0, "corner_halo": 1, "emit": 1}:
+            not mc_ran(got2, {"fusion": 0, "raycast": 0}):
         raise AssertionError(f"tsdf2mesh of the 16^3 volume: rc {rc2}, launches {got2}")
 
     # a dense run: the MC kernels through from_dense
@@ -815,7 +919,7 @@ def cli_phase(torch, tmp):
         f"integrate {res['dense_integrate_ms']:.2f} ms a frame, extraction "
         f"{res['dense_extract_ms']:.2f} ms; {n_tri} triangles, median |r - {CLI_RADIUS}| "
         f"{err * 1e3:.4f} mm; launches {got}")
-    if rc != 0 or got["corner_halo"] < 1 or got["emit"] < 1:
+    if rc != 0 or not mc_ran(got, {"fusion": 0, "raycast": 0}):
         raise AssertionError(f"dense integrate: rc {rc}, launches {got}")
     if err >= HALF_CELL_M or n_tri < 1000:
         raise AssertionError("dense integrate: the mesh is off the sphere")
@@ -901,8 +1005,8 @@ def brick_size_phase(torch, cfg, B, poses, depths, rgb, poses_h, timer):
                              f"radius error {radius_err})")
     if depth_err >= HALF_CELL_M:
         raise AssertionError(f"bricks of {B}^3: rendered depth off the sphere ({depth_err})")
-    want = {"fusion": len(frames), "corner_halo": 1, "emit": 1, "raycast": len(frames)}
-    if launches != want:
+    want = {"fusion": len(frames), "raycast": len(frames)}
+    if not mc_ran(launches, want):
         raise AssertionError(f"bricks of {B}^3: launches {launches}, want {want}")
     res["extract_ms"] = timer.ms(lambda: mc.extract_mesh(vol, 0.5, color_by_rgb=True))
 
@@ -954,21 +1058,13 @@ def refine_phase(torch, cfg, vol, pose_h):
     refined, losses = refine_pose(vol, bad, depth, iters=REFINE_ITERS, downsample_by=2)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    def host_ms(fn, reps=5):
-        times = []
-        for _ in range(reps + 1):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        return statistics.median(times[1:]) * 1e3
-
-    step_ms = host_ms(lambda: refine_pose_step(vol, bad, depth, 2))
+    step_ms = host_ms(torch, lambda: refine_pose_step(vol, bad, depth, 2), 5)
     J, r0, _ = refine._jacobian(vol, bad, depth, 2)
-    parts = {"residual_ms": host_ms(lambda: refine._alignment_residuals(vol, bad, depth, 2)),
-             "jacobian_ms": host_ms(lambda: refine._jacobian(vol, bad, depth, 2)),
-             "solve_ms": host_ms(lambda: refine._damped_step(J, r0, 1.0))}
+    one = torch.full((), 1.0, device=dev)
+    parts = {"residual_ms": host_ms(torch, lambda: refine._alignment_residuals(
+                 vol, bad, depth, 2), 5),
+             "jacobian_ms": host_ms(torch, lambda: refine._jacobian(vol, bad, depth, 2), 5),
+             "solve_ms": host_ms(torch, lambda: refine._damped_step(J, r0, one), 5)}
     busy, top = device_ms(torch, lambda: refine_pose_step(vol, bad, depth, 2))
     err0 = float(torch.linalg.vector_norm(bad[:3, 3] - pose[:3, 3]))
     err1 = float(torch.linalg.vector_norm(refined[:3, 3] - pose[:3, 3]))
@@ -1100,7 +1196,8 @@ def parallel_rank(rank: int, port: int, out_dir: str, spec: dict) -> None:
     if fm.shape != fs.shape or not np.array_equal(np.sort(vm.reshape(-1)), np.sort(vs.reshape(-1))):
         raise AssertionError(f"rank {rank}: the merged volume's mesh differs from one device's")
     res["triangles"] = len(fm)
-    if min(res["mc_launches"].values()) != per_call:
+    halo, emit = res["mc_launches"]["corner_halo"], res["mc_launches"]["emit"]
+    if halo != emit or (halo >= 1) != bool(per_call):   # once each a chunk program
         raise AssertionError(f"rank {rank}: MC launches {res['mc_launches']}")
 
     # ---- 2. the three sharded renders against the single-device kernel render
@@ -1393,6 +1490,193 @@ def graph_phase(torch, cfg, poses, depths, rgb, smi):
     return res
 
 
+def single_pass(torch, mc, vol, min_weight: float = 0.5):
+    """The extraction as one pass over every candidate brick, with exact
+    sizes and two host syncs (the candidate list, the triangle total): the
+    route before the budgeted chunks, kept here as the yardstick of their
+    triangles. Returns (vertices [T, 3, 3], colors [T, 3, 3])."""
+    cand = mc._candidate_slots(vol, min_weight)
+    count, cube, corners, ntri = mc.corner_halo(vol, cand, min_weight)
+    ends = torch.cumsum(ntri, 0, dtype=torch.int32)
+    verts, tri_cube = mc.emit_triangles(vol, cand, count, cube, corners, ends - ntri,
+                                        int(ends[-1]))
+    return verts, mc._expand_colors(mc._voxel_rgb(vol, tri_cube, True, False))
+
+
+def host_ms(torch, fn, reps: int = 10) -> float:
+    """Median host-clock ms of fn, each call ending in a synchronize, the
+    first call apart."""
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times[1:]) * 1e3
+
+
+def soups_differ(torch, a, b) -> list:
+    """The fields in which two soups differ: tri_valid, num_triangles,
+    overflowed, the valid rows' vertices and colors."""
+    out = [k for k in ("tri_valid", "num_triangles", "overflowed")
+           if not torch.equal(getattr(a, k), getattr(b, k))]
+    if not out:
+        for k in ("vertices", "colors"):
+            if not torch.equal(getattr(a, k)[a.tri_valid], getattr(b, k)[b.tri_valid]):
+                out.append(k)
+    return out
+
+
+def extraction_phase(torch, cfg, vol, pose_h, smi, breakdown) -> dict:
+    """Phase 12 (see the module docstring); returns the {"extraction": ...}
+    numbers."""
+    import logging
+
+    from cpu_tsdf_tpu_torch import graph, refine
+    from cpu_tsdf_tpu_torch.io import pcd
+    from cpu_tsdf_tpu_torch.ops import marching_cubes as mc
+    from cpu_tsdf_tpu_torch.pipeline import organize_cloud
+    from cpu_tsdf_tpu_torch.synthetic import sphere_depth_world
+
+    res = {"card": smi, "breakdown": breakdown}
+
+    # ---- 1. the checked route: the single pass's triangles, bit for bit ----
+    batches = []
+
+    class Batches(logging.Handler):
+        def emit(self, record):
+            batches.append(record.getMessage())
+
+    logger = logging.getLogger("cpu_tsdf_tpu_torch")
+    handler, level = Batches(logging.DEBUG), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.DEBUG)
+    try:
+        checked = mc.extract_soup_bricks(vol, 0.5, True)
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    ref_v, ref_c = single_pass(torch, mc, vol)
+    if not (torch.equal(checked.vertices, ref_v) and torch.equal(checked.colors, ref_c)):
+        raise AssertionError("the checked extraction differs from the single pass")
+    live, hint = checked.live_chunks, checked.budget_hint
+    res.update(triangles=int(checked.num_triangles), live_chunks=list(live),
+               budget_hint=[list(h) for h in hint], batches=batches)
+    log(f"checked extraction: {res['triangles']} triangles and colors bit-equal to the single "
+        f"pass; live chunks {live}, hints {hint}; batches: {batches}")
+
+    # ---- 2. the unchecked, hinted extraction: graphed and eager ------------
+    args = dict(live_chunks=live, budget_hint=hint, check=False)
+    graph.clear()
+    torch.cuda.synchronize()
+    mc.launches.update(corner_halo=0, emit=0)
+    t0 = time.perf_counter()
+    first = mc.extract_soup_bricks(vol, 0.5, True, **args)
+    torch.cuda.synchronize()
+    res["graph_first_ms"] = (time.perf_counter() - t0) * 1e3
+    graphed = mc.extract_soup_bricks(vol, 0.5, True, **args)
+    eager = mc.extract_soup_bricks(vol, 0.5, True, **args, graph=False)
+    torch.cuda.synchronize()
+    res["launches_graphed"] = dict(mc.launches)
+    want = {"corner_halo": 3 * len(live), "emit": 3 * len(live)}
+    if res["launches_graphed"] != want:
+        raise AssertionError(f"unchecked extractions launched {mc.launches}, want {want}")
+    for what, a, b in (("graphed and eager", graphed, eager), ("capture and replay", first,
+                                                               graphed)):
+        diff = soups_differ(torch, a, b)
+        if diff:
+            raise AssertionError(f"unchecked extraction, {what}: {diff} differ")
+    if bool(eager.overflowed) or not torch.equal(eager.vertices[eager.tri_valid], ref_v) or \
+            not torch.equal(eager.colors[eager.tri_valid], ref_c):
+        raise AssertionError("the unchecked extraction's valid triangles are not the checked "
+                             "route's")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = mc.extract_soup_bricks(vol, 0.5, True, **args, graph=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if soups_differ(torch, again, eager):
+        raise AssertionError("the eager unchecked extraction under the sync check differs")
+    small = tuple(tuple(b // 4 for b in h) for h in hint)
+    over = mc.extract_soup_bricks(vol, 0.5, True, live_chunks=live, budget_hint=small,
+                                  check=False)
+    recovered = mc.extract_soup_bricks(vol, 0.5, True, live_chunks=live, budget_hint=small)
+    if not bool(over.overflowed) or not torch.equal(recovered.vertices, ref_v):
+        raise AssertionError("a quarter of each budget: no overflow flag, or the checked "
+                             "route did not recover the mesh")
+    res["steady_ms"] = {r: host_ms(torch, lambda: mc.extract_soup_bricks(
+        vol, 0.5, True, **args, graph=None if r == "graph" else False))
+        for r in ("graph", "eager")}
+    res["checked_hinted_ms"] = host_ms(torch, lambda: mc.extract_soup_bricks(
+        vol, 0.5, True, live_chunks=live, budget_hint=hint))
+    res["busy"] = {r: busy_share(torch, lambda: [mc.extract_soup_bricks(
+        vol, 0.5, True, **args, graph=None if r == "graph" else False) for _ in range(8)])
+        for r in ("graph", "eager")}
+    res["extract_graph"] = [g for g in graph.stats() if g["kind"] == "extract"]
+    log(f"unchecked extraction: graphed and eager equal, valid triangles the checked route's, "
+        f"an eager call ran under set_sync_debug_mode('error'), a quarter of each budget "
+        f"overflows and the checked route recovers; steady ms {res['steady_ms']} (host clock, "
+        f"synchronized), checked with hints {res['checked_hinted_ms']:.4f} ms; first graphed "
+        f"call {res['graph_first_ms']:.2f} ms; busy share graph "
+        f"{res['busy']['graph']['share']:.4f}, eager {res['busy']['eager']['share']:.4f}; "
+        f"graph {res['extract_graph']}")
+
+    # ---- 4. the refine step and residual: graphed and eager ----------------
+    dev = vol.device
+    depth = torch.as_tensor(sphere_depth_world(cfg, pose_h, radius=0.5), device=dev)
+    pose = torch.as_tensor(pose_h, device=dev)
+    bad = refine._compose(refine.exp_se3(torch.tensor((*REFINE_SHIFT, 0.0, 0.0, 0.0),
+                                                      device=dev)), pose)
+    for lr in (1.0, 0.25, 1.0):
+        pg, lg = refine.refine_pose_step(vol, bad, depth, 2, 256, lr)
+        pe, le = refine.refine_pose_step(vol, bad, depth, 2, 256, lr, graph=False)
+        rg = refine.depth_residual(vol, pg, depth, 2)
+        re_ = refine.depth_residual(vol, pe, depth, 2, graph=False)
+        if not (torch.equal(pg, pe) and torch.equal(lg, le) and torch.equal(rg, re_)):
+            raise AssertionError(f"graphed refine step or residual differs from eager (lr {lr}): "
+                                 f"{float((pg - pe).abs().max())}, {float(lg)} vs {float(le)}")
+    res["refine_step_ms"] = {r: host_ms(torch, lambda: refine.refine_pose_step(
+        vol, bad, depth, 2, graph=None if r == "graph" else False)) for r in ("graph", "eager")}
+    res["refine_residual_ms"] = {r: host_ms(torch, lambda: refine.depth_residual(
+        vol, bad, depth, 2, graph=None if r == "graph" else False)) for r in ("graph", "eager")}
+    res["refine_busy"] = {r: busy_share(torch, lambda: [refine.refine_pose_step(
+        vol, bad, depth, 2, graph=None if r == "graph" else False) for _ in range(8)])
+        for r in ("graph", "eager")}
+    log(f"refine: graphed step and residual bit-equal to eager at 3 step scales; step ms "
+        f"{res['refine_step_ms']}, residual ms {res['refine_residual_ms']}; busy share graph "
+        f"{res['refine_busy']['graph']['share']:.4f}, eager "
+        f"{res['refine_busy']['eager']['share']:.4f}")
+
+    # ---- 5. organize_cloud: graphed and eager on phase 7's PCDs ------------
+    ccfg = type(cfg)()
+    times = {"graph": [], "eager": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        seq = os.path.join(tmp, "seq")
+        write_pcd_sequence(ccfg, seq, CLI_FRAMES, CLI_RADIUS)
+        for i in range(CLI_FRAMES):
+            cloud = pcd.load_pcd(os.path.join(seq, f"frame_{i:04d}.pcd"))
+            xyz, rgb = cloud.xyz().astype(np.float32), cloud.rgb()
+            out = {}
+            for r, flag in (("graph", None), ("eager", False)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out[r] = organize_cloud(ccfg, xyz, rgb, device=dev, graph=flag)
+                torch.cuda.synchronize()
+                times[r].append((time.perf_counter() - t0) * 1e3)
+            (dg, cg), (de, ce) = out["graph"], out["eager"]
+            if not (torch.equal(dg.nan_to_num(), de.nan_to_num())
+                    and torch.equal(dg.isnan(), de.isnan()) and torch.equal(cg, ce)):
+                raise AssertionError(f"graphed organize_cloud differs from eager on frame {i}")
+    res["organize_ms"] = {r: statistics.median(t[1:]) for r, t in times.items()}
+    res["organize_first_ms"] = {r: t[0] for r, t in times.items()}
+    log(f"organize_cloud: {CLI_FRAMES} PCDs graphed and eager bit-equal; median ms a frame "
+        f"{res['organize_ms']} (upload included, the first frame apart: "
+        f"{res['organize_first_ms']})")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1535,19 +1819,9 @@ def main() -> int:
         f"(share {busy / wall:.4f}; torch.profiler kernel time, wall unprofiled); "
         f"largest: {top}")
 
-    # extraction steps on the main volume (each a median of synchronized runs)
-    t_cand = timer.ms(lambda: mc._candidate_slots(vol, 0.5))
-    cand = mc._candidate_slots(vol, 0.5)
-    t_halo = timer.ms(lambda: mc.corner_halo(vol, cand, 0.5))
-    t_soup = timer.ms(lambda: mc.extract_soup_bricks(vol, 0.5, True))
-    soup = mc.extract_soup_bricks(vol, 0.5, True)
-    t_host = timer.ms(soup.to_numpy)
-    n_cubes = int(mc.corner_halo(vol, cand, 0.5)[0].sum())
-    log(f"extraction breakdown: brick stats + candidates {t_cand:.4f} ms; corner halo "
-        f"{t_halo:.4f} ms; scan + sync + emission + colors {t_soup - t_cand - t_halo:.4f} ms; "
-        f"copy to host {t_host:.4f} ms ({int(cand.shape[0])} candidate bricks, {n_cubes} "
-        f"crossing cubes, {soup.num_triangles} triangles; 2 host syncs: candidate list, "
-        f"triangle total)")
+    # extraction steps on the main volume: the checked route with a first
+    # call's hints (one batch, one host sync), each a median of synchronized runs
+    breakdown = extraction_breakdown(torch, mc, vol, timer)
 
     # ---- phase 4: each kernel against its plain version -------------------
     kernels = [fusion_check(torch, fk, vol, rows, pose_inv, depths[i_mid], rgb_t, n_ok,
@@ -1564,13 +1838,14 @@ def main() -> int:
     err = assert_volumes_equal(torch, vk, vp, "8-frame volumes")
     sk = mc.extract_soup_bricks(vk, 0.5, True)
     sp = mc.extract_soup_bricks(vp, 0.5, True, use_kernel=False)
-    if sk.num_triangles != sp.num_triangles or sk.num_triangles < 1000:
-        raise AssertionError(f"meshes differ: {sk.num_triangles} vs {sp.num_triangles}")
+    if int(sk.num_triangles) != int(sp.num_triangles) or int(sk.num_triangles) < 1000:
+        raise AssertionError(f"meshes differ: {int(sk.num_triangles)} vs "
+                             f"{int(sp.num_triangles)}")
     verr = float((sk.vertices - sp.vertices).abs().max())
     if verr > 1e-6 or not torch.equal(sk.colors, sp.colors):
         raise AssertionError(f"mesh vertices differ by {verr} (or colors differ)")
     log(f"whole-path parity over {n_par} frames: volumes match (sdf/M err {err}), "
-        f"{sk.num_triangles} triangles match (vertex err {verr})")
+        f"{int(sk.num_triangles)} triangles match (vertex err {verr})")
     del vk, vp, sk, sp
 
     raycast, render_grad = render_phase(torch, cfg, vol, poses, poses_h, timer)
@@ -1598,16 +1873,22 @@ def main() -> int:
 
     # ---- phase 11: the graphed frame, sequence and render against eager -----
     graphs = graph_phase(torch, cfg, poses, depths, rgb, smi)
+
+    # ---- phase 12: the budgeted extraction, refine and organize graphs ------
+    extraction = extraction_phase(torch, cfg, vol, poses_h[n_poses // 2], smi, breakdown)
     b16, b16_mesh = cli_numbers["brick16_launches"], cli_numbers["brick16_tsdf2mesh_launches"]
     on_paths = {"fusion": {"main": main_launches["fusion"], "cli": cli_numbers["launches"]["fusion"],
                            "cli_brick_16": b16["fusion"],
                            "parallel_per_rank": par["launches_per_rank"]["fusion"]},
                 "mc_corner_halo": {"main": main_launches["corner_halo"],
+                                   "unchecked_graph_3_calls":
+                                       extraction["launches_graphed"]["corner_halo"],
                                    "cli": cli_numbers["launches"]["corner_halo"],
                                    "cli_brick_16": b16["corner_halo"],
                                    "cli_brick_16_tsdf2mesh": b16_mesh["corner_halo"],
                                    "parallel_per_rank": par["launches_per_rank"]["corner_halo"]},
                 "mc_emit": {"main": main_launches["emit"], "cli": cli_numbers["launches"]["emit"],
+                            "unchecked_graph_3_calls": extraction["launches_graphed"]["emit"],
                             "cli_brick_16": b16["emit"],
                             "cli_brick_16_tsdf2mesh": b16_mesh["emit"],
                             "parallel_per_rank": par["launches_per_rank"]["emit"]},
@@ -1633,6 +1914,7 @@ def main() -> int:
     print(json.dumps({"brick_sizes": {str(B): {k: v for k, v in res.items() if k != "kernels"}
                                       for B, res in sizes.items()}}))
     print(json.dumps({"graphs": graphs}))
+    print(json.dumps({"extraction": extraction}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -67,7 +67,7 @@ class BrickVolume:
 
 
 def make_brick_volume(cfg: TSDFConfig, brick_size: int = 8,
-                      capacity: int = 1 << 15, dtype=torch.float32,
+                      capacity: int = 1 << 15, dtype=torch.float32, *,
                       device=None) -> BrickVolume:
     """An empty brick volume on ``device`` (default CUDA; pass "cpu" for the
     CPU — there is no silent fallback)."""
@@ -397,7 +397,7 @@ def frame_update_list(vol: BrickVolume, depth, pose_inv, update_budget: int,
 def integrate_bricks(vol: BrickVolume, depth, pose, rgb=None,
                      update_budget: int = 1 << 13,
                      use_kernel: Optional[bool] = None,
-                     split_generator: Optional[torch.Generator] = None,
+                     split_generator: Optional[torch.Generator] = None, *,
                      graph: Optional[bool] = None) -> BrickVolume:
     """Fuse one depth frame into the brick volume, IN PLACE; returns `vol`.
 
@@ -444,7 +444,7 @@ def fuse_frame(vol: BrickVolume, depth, pose, rgb, update_budget: int, kernel: b
 def integrate_bricks_sequence(vol: BrickVolume, depths, poses, rgbs=None,
                               update_budget: int = 1 << 13,
                               use_kernel: Optional[bool] = None,
-                              split_generator: Optional[torch.Generator] = None,
+                              split_generator: Optional[torch.Generator] = None, *,
                               graph: Optional[bool] = None) -> BrickVolume:
     """Fuse a sequence of frames ([N, H, W] depths, [N, 4, 4] poses,
     optional [N, H, W, 3] rgbs) in order, IN PLACE; equal to calling

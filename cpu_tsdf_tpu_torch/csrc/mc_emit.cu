@@ -34,7 +34,11 @@
 // tri_off[k] + the chunk's base: vertices [T, 3, 3] and tri_cube[t] =
 // slot * B^3 + voxel (int32: the wrapper refuses capacity * B^3 >= 2^31),
 // coalesced 4-byte stores (a triangle is 36 B, so its start is 4-byte
-// aligned only).
+// aligned only). The output holds tri_budget triangles, a fixed size that
+// a CUDA graph can replay (the JAX package's per-chunk tri_budget): no
+// triangle at or past it is stored, and a block whose first triangle lies
+// past it returns at once; the caller flags the overflow from the scan of
+// the triangle counts.
 //
 // Bound: device memory. 36 B read per crossing cube (code and corners),
 // 40 B written per triangle, a few words per brick; the case table stays in
@@ -198,7 +202,7 @@ emit_kernel(Brick br, const int* __restrict__ slots, const int* __restrict__ coo
             const int* __restrict__ count, const int* __restrict__ cube,
             const float* __restrict__ corners, const int* __restrict__ tri_off,
             const float* __restrict__ transform, EmitGrid g,
-            float* __restrict__ verts, int* __restrict__ tri_cube) {
+            int tri_budget, float* __restrict__ verts, int* __restrict__ tri_cube) {
   const int NT = br.threads, B = br.b, V = B * B * B;
   __shared__ float m[12];
   __shared__ int warp_sum[kThreads / 32];
@@ -214,7 +218,7 @@ emit_kernel(Brick br, const int* __restrict__ slots, const int* __restrict__ coo
   int code = t < V ? cube[(size_t)k * V + t] : -1;
   const int slot = slots[k];
   int base = tri_off[k];
-  if (n == 0) return;  // uniform across the block
+  if (n == 0 || base >= tri_budget) return;  // uniform across the block
   if (t < 12) m[t] = transform[t];
   const int b0[3] = {coords[3 * slot] * B, coords[3 * slot + 1] * B, coords[3 * slot + 2] * B};
   const int lane = t & 31, warp = t >> 5;
@@ -273,19 +277,22 @@ emit_kernel(Brick br, const int* __restrict__ slots, const int* __restrict__ coo
       }
     }
     __syncthreads();
+    const int keep = min(total, tri_budget - base);  // stored below the budget
     float* dv = verts + (size_t)base * 9;
-    for (int f = t; f < total * 9; f += NT) dv[f] = st_v[f];
-    for (int f = t; f < total; f += NT) tri_cube[base + f] = st_c[f];
+    for (int f = t; f < keep * 9; f += NT) dv[f] = st_v[f];
+    for (int f = t; f < keep; f += NT) tri_cube[base + f] = st_c[f];
     base += total;
     __syncthreads();  // the next chunk reuses warp_sum and the stage
+    if (base >= tri_budget) break;  // uniform across the block
   }
 }
 
-// brick is the even brick size B.
+// brick is the even brick size B; verts and tri_cube hold tri_budget
+// triangles.
 extern "C" int tsdf_mc_emit(const void* slots, const void* coords, const void* count,
                             const void* cube, const void* corners, const void* tri_off,
-                            const void* transform, int n_slots, int brick, const float* grid,
-                            void* verts, void* tri_cube, void* stream) {
+                            const void* transform, int n_slots, int brick, int tri_budget,
+                            const float* grid, void* verts, void* tri_cube, void* stream) {
   if (brick < 2 || brick % 2) return (int)cudaErrorInvalidValue;
   if (n_slots > 0) {
     EmitGrid g;
@@ -307,7 +314,7 @@ extern "C" int tsdf_mc_emit(const void* slots, const void* coords, const void* c
     kernel<<<n_slots, br.threads, stage, (cudaStream_t)stream>>>(
         br, (const int*)slots, (const int*)coords, (const int*)count, (const int*)cube,
         (const float*)corners, (const int*)tri_off, (const float*)transform, g,
-        (float*)verts, (int*)tri_cube);
+        tri_budget, (float*)verts, (int*)tri_cube);
   }
   return (int)cudaGetLastError();
 }

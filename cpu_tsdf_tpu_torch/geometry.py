@@ -85,31 +85,31 @@ def reproject_point(cfg: TSDFConfig, x, y, z):
     return u, v, valid
 
 
-def transform_points(m, x, y, z):
+def transform_points(mat4, x, y, z):
     """Apply a 4x4 (or 3x4) rigid transform to xyz coordinate tensors,
     summed left to right as ``m0*x + m1*y + m2*z + m3``."""
-    nx = m[0, 0] * x + m[0, 1] * y + m[0, 2] * z + m[0, 3]
-    ny = m[1, 0] * x + m[1, 1] * y + m[1, 2] * z + m[1, 3]
-    nz = m[2, 0] * x + m[2, 1] * y + m[2, 2] * z + m[2, 3]
+    nx = mat4[0, 0] * x + mat4[0, 1] * y + mat4[0, 2] * z + mat4[0, 3]
+    ny = mat4[1, 0] * x + mat4[1, 1] * y + mat4[1, 2] * z + mat4[1, 3]
+    nz = mat4[2, 0] * x + mat4[2, 1] * y + mat4[2, 2] * z + mat4[2, 3]
     return nx, ny, nz
 
 
-def rotate_vectors(m, x, y, z):
+def rotate_vectors(mat4, x, y, z):
     """Apply only the rotation part of a 4x4 transform, summed left to
     right as ``m0*x + m1*y + m2*z``."""
-    nx = m[0, 0] * x + m[0, 1] * y + m[0, 2] * z
-    ny = m[1, 0] * x + m[1, 1] * y + m[1, 2] * z
-    nz = m[2, 0] * x + m[2, 1] * y + m[2, 2] * z
+    nx = mat4[0, 0] * x + mat4[0, 1] * y + mat4[0, 2] * z
+    ny = mat4[1, 0] * x + mat4[1, 1] * y + mat4[1, 2] * z
+    nz = mat4[2, 0] * x + mat4[2, 1] * y + mat4[2, 2] * z
     return nx, ny, nz
 
 
-def rigid_inverse(m):
+def rigid_inverse(mat4):
     """Analytic inverse of a rigid 4x4 transform: [R^T, -R^T t]
     (differentiable)."""
-    Rt = m[:3, :3].T
-    t = -(Rt @ m[:3, 3])
+    Rt = mat4[:3, :3].T
+    t = -(Rt @ mat4[:3, 3])
     # made on the device: a row copied from the host would be a host sync
-    bottom = torch.eye(4, dtype=m.dtype, device=m.device)[3:]
+    bottom = torch.eye(4, dtype=mat4.dtype, device=mat4.device)[3:]
     return torch.cat([torch.cat([Rt, t[:, None]], 1), bottom], 0)
 
 

@@ -1,28 +1,38 @@
-"""CUDA graphs of a frame and of a render: the port's counterparts of the
+"""CUDA graphs of the port's fixed-shape programs: its counterparts of the
 JAX package's compiled programs.
 
 The JAX package runs a frame as one jitted program with the volume donated
 (``cpu_tsdf_tpu/bricks.py::_integrate_bricks_jit``), a trajectory as one
-``lax.scan`` program (``_integrate_bricks_seq_jit``) and a render as one
-jitted program (``cpu_tsdf_tpu/ops/raycast.py::_render_view_jit``). Here
-a frame (``bricks.fuse_frame``) and a render (``ops.raycast._render``) are
-programs of fixed shapes with no host sync (``tests/test_torch_graph.py``
-records their ops), so on the card each is captured once into a
-``torch.cuda.CUDAGraph`` and replayed: the hand-written kernels and their
-glue run with no per-op host dispatch.
+``lax.scan`` program (``_integrate_bricks_seq_jit``), a render as one
+jitted program (``cpu_tsdf_tpu/ops/raycast.py::_render_view_jit``), an
+unchecked extraction as one jitted program a chunk
+(``cpu_tsdf_tpu/ops/marching_cubes.py::_extract_chunk_compact``), the
+refine step and residual jitted (``cpu_tsdf_tpu/refine.py::
+refine_pose_step``, ``_residual_jit``) and the reprojection of a cloud
+jitted (``cpu_tsdf_tpu/pipeline.py::_organize_jit``). Here a frame
+(``bricks.fuse_frame``), a render (``ops.raycast._render``), an unchecked
+extraction (``ops.marching_cubes._extract_unchecked``), a refine step and
+residual (``refine._step``, ``refine._residual``) and a reprojection
+(``pipeline._organize``) are programs of fixed shapes with no host sync
+(``tests/test_torch_graph.py`` records their ops), so on the card each is
+captured once into a ``torch.cuda.CUDAGraph`` and replayed: the
+hand-written kernels and their glue run with no per-op host dispatch.
 
-* **Static inputs.** A graph reads its depth, pose and rgb (a render: its
-  pose) from buffers of its own; a call copies its inputs into them on the
-  device and replays. A graph addresses the volume's state tensors
-  directly: every state update of the frame is in place.
+* **Static inputs.** A graph reads its inputs (a frame's depth, pose and
+  rgb; a render's pose; a refine step's pose, depth and step scale; a
+  cloud's points and colors) from buffers of its own; a call copies its
+  inputs into them on the device and replays. A graph addresses the
+  volume's state tensors directly: every state update of the frame is in
+  place.
 * **Warm-up and capture.** The first call of a graph runs the program
   eagerly on a side stream (the real frame or render: it loads the
   kernel libraries and the stream's cuBLAS workspace, neither of which may
   happen during a capture), then captures it on that stream.
 * **Cache.** Graphs are kept by the device, the address, shape and type of
   every state tensor of the volume, the config, the brick size, the input
-  shapes, the budget, color, the kernel route and the split generator; a
-  changed key (a new or reloaded volume, other settings) captures anew.
+  shapes and the program's settings (a frame's budget, color, kernel route
+  and split generator; an extraction's chunks and budgets); a changed key
+  (a new or reloaded volume, other settings) captures anew.
   At most :data:`MAX_GRAPHS` are kept, the least recently used dropped.
 * **Random draws.** With ``num_random_splits > 1`` the jitter draws from a
   generator registered with the graph, so each replay draws where the
@@ -32,12 +42,13 @@ glue run with no per-op host dispatch.
   frame).
 * **Launch counts.** The kernels a capture records are counted at every
   replay in the wrappers' counters (``fusion_kernel.launches``,
-  ``raycast_kernel.launches``); the capture itself launches nothing.
+  ``raycast_kernel.launches``, ``marching_cubes.launches``); the capture
+  itself launches nothing.
 
 A capture or replay that fails raises: nothing falls back to the eager
-route. Out of the graphs: ``extract_mesh`` (its exact budgets need two host
-syncs), the sharded paths (gloo collectives through the host), the render
-under autograd, ``refine`` and ``pipeline.organize_cloud``.
+route. Out of the graphs: the checked extraction (``extract_mesh``: one
+host sync a batch of chunks, by design), the sharded paths (gloo
+collectives through the host) and the render under autograd.
 """
 
 from __future__ import annotations
@@ -67,9 +78,9 @@ def resolve_graph(graph: Optional[bool], device: torch.device) -> bool:
 
 
 def _counters():
-    from .ops import fusion_kernel, raycast_kernel
+    from .ops import fusion_kernel, marching_cubes, raycast_kernel
 
-    return (fusion_kernel.launches, raycast_kernel.launches)
+    return (fusion_kernel.launches, raycast_kernel.launches, marching_cubes.launches)
 
 
 def state_key(vol) -> tuple:
@@ -218,35 +229,94 @@ def integrate_graphed(vol, depth, pose, rgb, update_budget: int, kernel: bool,
         entry.run(depth, pose, rgb, reseed)
 
 
-class _RenderGraph:
-    """The graph of ``ops.raycast._render`` of one volume, with its static
-    pose. Built by the first render, which runs as its warm-up."""
+class _ProgramGraph:
+    """The graph of ``program(*inputs)`` with its static input buffers
+    (copies of the first call's inputs). Built by the first call, which
+    runs as its warm-up."""
 
-    def __init__(self, vol, pose, downsample_by, max_steps, colored, kernel):
-        from .ops.raycast import _render
+    def __init__(self, device, program, inputs):
+        self.inputs = [t.clone() for t in inputs]
+        self.captured = _Captured(device, lambda: program(*self.inputs))
 
-        self.pose = pose.clone()
-        self.captured = _Captured(vol.device, lambda: _render(
-            vol, self.pose, downsample_by, max_steps, colored, kernel))
-
-    def run(self, pose):
-        self.pose.copy_(pose)
+    def run(self, inputs):
+        for buf, t in zip(self.inputs, inputs):
+            buf.copy_(t)
         self.captured.replay()
         return self.captured.out
+
+
+def _run_graphed(key, device, program, inputs):
+    """program(*inputs) through the graph kept under `key`: the first call
+    of a key captures it and returns its warm-up's result; a later call
+    copies `inputs` into the static buffers and replays, and returns the
+    graph's outputs, which its next replay overwrites."""
+    entry = _lookup(key)
+    if entry is None:
+        entry = _ProgramGraph(device, program, inputs)
+        _keep(key, entry)
+        out, entry.captured.warm = entry.captured.warm, None
+        return out
+    return entry.run(inputs)
 
 
 def render_graphed(vol, pose, downsample_by: int, max_steps: int, colored: bool,
                    kernel: bool):
     """``ops.raycast.render_view`` through its graph: a RenderResult of
-    fresh tensors (the graph's outputs are overwritten by its next
-    replay)."""
-    from .ops.raycast import fresh_result
+    fresh tensors."""
+    from .ops.raycast import _render, fresh_result
 
     key = ("render", vol.device, state_key(vol), downsample_by, max_steps, colored, kernel)
-    entry = _lookup(key)
-    if entry is None:
-        entry = _RenderGraph(vol, pose, downsample_by, max_steps, colored, kernel)
-        _keep(key, entry)
-        out, entry.captured.warm = entry.captured.warm, None
-        return fresh_result(out)
-    return fresh_result(entry.run(pose))
+    return fresh_result(_run_graphed(key, vol.device, lambda p: _render(
+        vol, p, downsample_by, max_steps, colored, kernel), [pose]))
+
+
+def extract_graphed(bv, min_weight: float, color_by_rgb: bool, color_by_confidence: bool,
+                    kernel: bool, chunk_slots: int, live_chunks: tuple, budgets: tuple):
+    """``ops.marching_cubes.extract_soup_bricks(check=False)`` through its
+    graph (the chunk programs of these live chunks and budgets): a MeshSoup
+    of fresh tensors."""
+    from .ops.marching_cubes import _extract_unchecked
+
+    args = (float(min_weight), color_by_rgb, color_by_confidence, kernel, chunk_slots,
+            live_chunks, budgets)
+    soup = _run_graphed(("extract", bv.device, state_key(bv)) + args, bv.device,
+                        lambda: _extract_unchecked(bv, *args), [])
+    return dataclasses.replace(soup, **{
+        f.name: t.clone() for f in dataclasses.fields(soup)
+        if isinstance(t := getattr(soup, f.name), torch.Tensor)})
+
+
+def refine_graphed(kind: str, vol, inputs, downsample_by: int):
+    """``refine._step`` (kind "step": inputs pose, depth, step scale;
+    returns (pose, loss)) or ``refine._residual`` ("residual": pose, depth;
+    returns the loss) through its graph, in fresh tensors."""
+    from .refine import _residual, _step
+
+    program = _step if kind == "step" else _residual
+    key = ("refine_" + kind, vol.device, state_key(vol), tuple(inputs[1].shape), downsample_by)
+    out = _run_graphed(key, vol.device,
+                       lambda *xs: program(vol, *xs, downsample_by=downsample_by), inputs)
+    return tuple(t.clone() for t in out) if kind == "step" else out.clone()
+
+
+def organize_graphed(cfg, points, rgb):
+    """``pipeline.organize_cloud`` through the graph of its padded length:
+    the cloud padded with NaN points up to a power of two (a NaN point lands
+    nowhere, so neither the depth nor a pixel's winner changes), the result
+    in fresh tensors."""
+    from .pipeline import _organize
+
+    n, dev = points.shape[0], points.device
+    npad = 1 << max(n - 1, 0).bit_length()
+    pts = torch.full((npad, 3), float("nan"), dtype=torch.float32, device=dev)
+    pts[:n] = points
+    inputs = [pts]
+    if rgb is not None:
+        cols = torch.zeros((npad, 3), dtype=torch.float32, device=dev)
+        cols[:n] = rgb
+        inputs.append(cols)
+    key = ("organize", dev, cfg.image_width, cfg.image_height, cfg.focal_length_x,
+           cfg.focal_length_y, cfg.principal_point_x, cfg.principal_point_y, npad,
+           rgb is None)
+    depth, rgb_img = _run_graphed(key, dev, lambda *xs: _organize(cfg, *xs), inputs)
+    return depth.clone(), None if rgb_img is None else rgb_img.clone()

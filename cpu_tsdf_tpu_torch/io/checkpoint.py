@@ -65,7 +65,7 @@ def checkpoint_meta(path: str) -> dict:
         return json.loads(bytes(z["__meta__"]).decode())
 
 
-def load_checkpoint(path: str, device=None):
+def load_checkpoint(path: str, *, device=None):
     """A native checkpoint as a TSDFVolume or BrickVolume on ``device``
     (default CUDA)."""
     with np.load(path) as z:
@@ -81,7 +81,7 @@ def load_checkpoint(path: str, device=None):
     return tsdf_volume_from_arrays(cfg, arrays, device)
 
 
-def load_any(path: str, device=None):
+def load_any(path: str, *, device=None):
     """Factory dispatch on file contents, the TSDFInterface::instantiateFromFile
     analog (cpu_tsdf/src/lib/tsdf_interface.cpp:44-51): a native .npz
     checkpoint (zip magic ``PK``) loads as it was saved, a reference .vol
@@ -89,7 +89,7 @@ def load_any(path: str, device=None):
     with open(path, "rb") as f:
         magic = f.read(4)
     if magic[:2] == b"PK":
-        return load_checkpoint(path, device)
+        return load_checkpoint(path, device=device)
     from .vol import load_vol
 
     dev = resolve_device(device)

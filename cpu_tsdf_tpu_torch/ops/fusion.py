@@ -46,7 +46,7 @@ def coarse_cell_frustum(cfg: TSDFConfig, trans_inv, vx, vy, vz):
     return frustum_contains(cfg, trans_inv, ccx, ccy, ccz)
 
 
-def coarse_frustum_mask(cfg: TSDFConfig, trans_inv, x_slab=None):
+def coarse_frustum_mask(cfg: TSDFConfig, trans_inv, *, x_slab=None):
     """Dense [xres,yres,zres] version of :func:`coarse_cell_frustum`; with
     x_slab = (x0, nx), that of the X-slab [x0, x0 + nx) only."""
     dev = trans_inv.device
@@ -136,10 +136,10 @@ def integrate_slab(vol: TSDFVolume, depth, pose, rgb: Optional[torch.Tensor] = N
     depth = torch.as_tensor(depth, dtype=torch.float32, device=dev)
     pose_inv = rigid_inverse(torch.as_tensor(pose, dtype=torch.float32, device=dev))
     x_slab = (x0, vol.sdf.shape[0])
-    cx, cy, cz = voxel_centers_grid(cfg, dev, x_slab)
+    cx, cy, cz = voxel_centers_grid(cfg, device=dev, x_slab=x_slab)
     d_obs, w_obs, valid, _, u, v = compute_observation(cfg, depth, pose_inv, cx, cy, cz)
     if cfg.frustum_culling:
-        valid = valid & coarse_frustum_mask(cfg, pose_inv, x_slab)
+        valid = valid & coarse_frustum_mask(cfg, pose_inv, x_slab=x_slab)
     w_obs = variance_weight(cfg, w_obs, d_obs, vol.sdf, vol.weight, vol.M, vol.nsample)
     d_upd, w_upd, M_upd, n_upd = fuse_observation(
         vol.sdf, vol.weight, vol.M, vol.nsample, d_obs, w_obs, cfg.max_weight)

@@ -2,40 +2,53 @@
 
 Port of ``cpu_tsdf_tpu.ops.marching_cubes`` (MarchingCubesTSDFOctree,
 cpu_tsdf/src/lib/marching_cubes_tsdf_octree.cpp:43-236). A brick
-extraction is:
+extraction runs over chunks of ``chunk_slots`` slots, the live ones only;
+each chunk is one program of fixed shapes with no host sync
+(:func:`_extract_chunk`, the counterpart of the JAX package's
+``_extract_chunk_compact``):
 
-  1. candidate bricks: per-brick (min, max) of the valid d, combined over
-     the brick and its seven +1 neighbours, must straddle 0 — a superset of
-     the bricks holding a crossing cube;
-  2. the reference's cube filter over the candidates' cubes, then table
-     lookup, edge interpolation (PCL's interpolateEdge on the voxel-centre
-     lattice) and triangle emission.
+  1. per-slot (min, max) of the valid d over the live chunks
+     (:func:`_brick_stats`);
+  2. candidate bricks of the chunk: the (min, max) combined over the brick
+     and its seven +1 neighbours straddles 0, a superset of the bricks
+     holding a crossing cube; compacted to a brick budget, the pads at the
+     sentinel row C;
+  3. the reference's cube filter over the candidates' cubes, their corner
+     values and triangle counts (the corner-halo kernel,
+     ``csrc/mc_corner_halo.cu``; plain version :func:`_corner_halo_plain`);
+  4. the triangle offsets (an exclusive scan on the device) and the
+     emission into a fixed ``[tri_budget, 3, 3]`` buffer, no triangle at or
+     past the budget stored (``csrc/mc_emit.cu``; plain version
+     :func:`_emit_plain`): table lookup, edge interpolation (PCL's
+     interpolateEdge on the voxel-centre lattice), the global transform;
+  5. the colors, and the chunk's counts and overflow flags.
 
-The kernel route runs step 2 as two kernels: the corner halo
-(``csrc/mc_corner_halo.cu``) compacts each brick's crossing cubes with
-their corner values and triangle counts, and the emission kernel
-(``csrc/mc_emit.cu``) writes each brick's triangles at its offset in the
-mesh; their plain versions are :func:`_corner_halo_plain` and
-:func:`_emit_plain`. The plain route (:func:`_corner_stacks`, a global
-``nonzero``, :func:`_emit_soup`) builds every corner stack and triangle
-slot and compacts them.
+``check=True`` reads each batch of chunks' counts in one host sync and runs
+a chunk whose brick, cube or triangle budget overflowed again with that
+budget doubled, as the JAX package does; the result is compact and carries
+budget hints. ``check=False`` issues no host sync: fixed per-chunk
+buffers, ``tri_valid``, ``num_triangles`` and ``overflowed`` on the
+device; on the card it replays a CUDA graph (``graph.extract_graphed``).
 
-Budgets are sized from exact counts, so nothing overflows and there is no
-retry: the kernel route syncs with the host twice (the candidate list, the
-triangle total). The triangle order is the JAX package's: ascending slot
-of the candidate brick, then voxel, then triangle slot of the case table.
+The triangle order is the JAX package's: ascending slot of the candidate
+brick, then voxel, then triangle slot of the case table. The halo keeps
+each brick's crossing cubes, so no cube list is compacted: the cube budget
+only sets the reported count's overflow flag, which the retries and hints
+read as the JAX package's do.
 
 A dense volume on the card goes through the same kernels after
 ``bricks.from_dense``, as the JAX package does on an accelerator; on the
 CPU it takes the dense route (:func:`marching_cubes`: the cube filter over
-every cube, one ``nonzero``, the plain emission), whose triangles come in
-cube-major order. Both are sized from the exact count.
+every cube, a budgeted compaction, every triangle slot), whose triangles
+come in cube-major order.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
+import logging
 from typing import Optional
 
 import numpy as np
@@ -61,37 +74,85 @@ launches = {"corner_halo": 0, "emit": 0}
 # +1-neighbour directions; index (bx<<2)|(by<<1)|bz, as in the halo kernel.
 _NBR_BITS = tuple(((i >> 2) & 1, (i >> 1) & 1, i & 1) for i in range(8))
 
+# corner_engine values of the JAX package and the route each takes here
+_ENGINES = {"xla": False, "interpret": False, "pallas": True}
+
 
 @dataclasses.dataclass
 class MeshSoup:
-    """Compact triangle soup: ``num_triangles`` rows, in extraction order."""
+    """Fixed-budget triangle soup: triangle i is real iff tri_valid[i]. The
+    checked brick route returns it compact (the first num_triangles rows)."""
 
-    vertices: torch.Tensor          # [N, 3, 3] f32 (triangle, corner, xyz)
-    colors: Optional[torch.Tensor]  # [N, 3, 3] f32 (0..255) or None
-    num_triangles: int
+    vertices: torch.Tensor          # [T, 3, 3] f32 (triangle, corner, xyz)
+    colors: Optional[torch.Tensor]  # [T, 3, 3] f32 (0..255) or None
+    tri_valid: torch.Tensor         # [T] bool
+    num_triangles: torch.Tensor     # 0-dim int32
+    overflowed: torch.Tensor        # 0-dim bool: a budget was exceeded
+    # brick-route reuse hints (extract_soup_bricks), tuples of host ints
+    live_chunks: Optional[tuple] = None   # chunk start slots
+    budget_hint: Optional[tuple] = None   # per chunk (cube, brick, tri)
 
     def to_numpy(self):
-        """(V [N*3, 3], F [N, 3], C [N*3, 3] or None) as numpy arrays."""
-        verts = self.vertices.detach().cpu().numpy().reshape(-1, 3)
+        """(V [N*3, 3], F [N, 3], C [N*3, 3] or None) as numpy arrays, N =
+        num_triangles. A soup that is not compact is compacted on the
+        device first (:func:`_compact_soup`), so only the real triangles
+        are copied to the host."""
+        n = int(self.num_triangles)
+        if n == 0:
+            return (np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32),
+                    None if self.colors is None else np.zeros((0, 3), np.float32))
+        if self.vertices.shape[0] == n:
+            v, c = self.vertices, self.colors
+        else:
+            v, c = _compact_soup(self, 1 << (n - 1).bit_length())
+        verts = v[:n].detach().cpu().numpy().reshape(-1, 3)
         faces = np.arange(len(verts), dtype=np.int32).reshape(-1, 3)
-        cols = (None if self.colors is None
-                else self.colors.detach().cpu().numpy().reshape(-1, 3))
+        cols = None if c is None else c[:n].detach().cpu().numpy().reshape(-1, 3)
         return verts, faces, cols
 
 
+def _compact_soup(soup: MeshSoup, budget: int):
+    """The valid triangles' rows in order, [budget, 3, 3] vertices (and
+    colors): a cumsum rank of tri_valid and a row gather, as the JAX
+    package's ``_compact_soup``; rows past the valid count are
+    unspecified."""
+    from ..activation import _compact
+
+    T = soup.tri_valid.shape[0]
+    ids, _ = _compact(soup.tri_valid, torch.arange(T, dtype=torch.int32,
+                                                   device=soup.tri_valid.device), budget)
+    sel = torch.clamp(ids, min=0).long()
+    return soup.vertices[sel], None if soup.colors is None else soup.colors[sel]
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(device: torch.device):
+    """The case tables on a device (TRI_TABLE [256, 3 * MAX] and TRI_COUNT
+    [256], int64), copied there once: a copy from the host inside an
+    extraction would be a host sync."""
+    return (torch.as_tensor(TRI_TABLE, dtype=torch.int64, device=device),
+            torch.as_tensor(TRI_COUNT, dtype=torch.int64, device=device))
+
+
 # ---------------------------------------------------------------------------
-# step 1: candidate bricks
+# step 1: brick stats and candidate bricks
 # ---------------------------------------------------------------------------
 
-def _brick_stats(bv, min_weight: float):
-    """Per-slot (min, max) of d over VALID voxels (w >= min_weight, |d| < 1),
-    +inf/-inf where there is none; index C (the missing-neighbour sentinel)
-    is +inf/-inf too. Returns ([C+1], [C+1])."""
-    valid = (bv.weight >= min_weight) & (torch.abs(bv.sdf) < 1.0)
-    inf = torch.full((1,), float("inf"), device=bv.device)
-    dmin = torch.where(valid, bv.sdf, inf).amin(1)
-    dmax = torch.where(valid, bv.sdf, -inf).amax(1)
-    return torch.cat([dmin, inf]), torch.cat([dmax, -inf])
+def _brick_stats(bv, live_chunks: tuple, chunk_slots: int, min_weight: float):
+    """Per-slot (min, max) of d over VALID voxels (w >= min_weight, |d| < 1)
+    of the chunks starting at `live_chunks`; +inf/-inf where there is none,
+    outside those chunks and at index C (the missing-neighbour sentinel).
+    Returns ([C+1], [C+1])."""
+    C = bv.capacity
+    inf = float("inf")
+    dmin = torch.full((C + 1,), inf, dtype=torch.float32, device=bv.device)
+    dmax = torch.full((C + 1,), -inf, dtype=torch.float32, device=bv.device)
+    for s0 in live_chunks:
+        d = bv.sdf[s0:s0 + chunk_slots]
+        valid = (bv.weight[s0:s0 + chunk_slots] >= min_weight) & (torch.abs(d) < 1.0)
+        dmin[s0:s0 + chunk_slots] = torch.where(valid, d, inf).amin(1)
+        dmax[s0:s0 + chunk_slots] = torch.where(valid, d, -inf).amax(1)
+    return dmin, dmax
 
 
 def _neighbor_slots(bv, coords, live):
@@ -100,7 +161,8 @@ def _neighbor_slots(bv, coords, live):
     grid or unallocated."""
     nbx, nby, nbz = bv.bricks_per_axis
     C = bv.capacity
-    bits = torch.tensor(_NBR_BITS, dtype=torch.int32, device=coords.device)
+    i = torch.arange(8, dtype=torch.int32, device=coords.device)
+    bits = torch.stack([(i >> 2) & 1, (i >> 1) & 1, i & 1], 1)       # _NBR_BITS
     nc = coords[:, None, :] + bits[None]                            # [K, 8, 3]
     inside = live[:, None] & (nc[..., 0] < nbx) & (nc[..., 1] < nby) & (nc[..., 2] < nbz)
     blin = (nc[..., 0] * nby + nc[..., 1]) * nbz + nc[..., 2]
@@ -108,14 +170,23 @@ def _neighbor_slots(bv, coords, live):
     return torch.where(inside & (ns >= 0), ns, C)
 
 
+def _candidate_mask(bv, stats, coords):
+    """Whether each brick of `coords` [K, 3] (-1 rows dead) may hold a
+    crossing cube: a valid voxel of its own (a cube's lower corner is in the
+    brick) and the valid d over it and its +1 neighbours straddling 0."""
+    dmin, dmax = stats
+    live = coords[:, 0] >= 0
+    ns = _neighbor_slots(bv, coords, live).long()
+    return (live & (dmin[ns[:, 0]] < float("inf")) & (dmin[ns].amin(1) < 0.0)
+            & (dmax[ns].amax(1) >= 0.0))
+
+
 def _candidate_slots(bv, min_weight: float):
-    """Ascending int32 slots of the bricks that may hold a crossing cube."""
-    dmin, dmax = _brick_stats(bv, min_weight)
-    live = bv.coords[:, 0] >= 0
-    ns = _neighbor_slots(bv, bv.coords, live).long()
-    has_own = dmin[:-1] < float("inf")  # a cube's lower corner is in the brick
-    cand = live & has_own & (dmin[ns].amin(1) < 0.0) & (dmax[ns].amax(1) >= 0.0)
-    return torch.nonzero(cand).squeeze(1).to(torch.int32)  # host sync
+    """Ascending int32 slots of every candidate brick of the volume (one
+    host sync: the list's length). The extraction itself compacts each
+    chunk's candidates to a budget instead."""
+    stats = _brick_stats(bv, (0,), bv.capacity, min_weight)
+    return torch.nonzero(_candidate_mask(bv, stats, bv.coords)).squeeze(1).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -209,7 +280,7 @@ def _corner_halo_plain(bv, slots, min_weight: float):
     corners = torch.where(on[..., None], dstack[torch.where(on, rows + loc, 0)], 0.0)
     cubeindex = _cube_index(corners.reshape(-1, 8) * bv.config.max_dist_neg).reshape(on.shape)
     cube = torch.where(on, cubeindex * nv + loc, -1).to(torch.int32)
-    tri_count = torch.as_tensor(TRI_COUNT, dtype=torch.int32, device=ok.device)
+    tri_count = _tables(ok.device)[1]
     ntri = torch.where(on, tri_count[cubeindex], 0).sum(1, dtype=torch.int32)
     return on.sum(1, dtype=torch.int32), cube, corners, ntri
 
@@ -300,8 +371,8 @@ def _edge_points(cfg: TSDFConfig, ci, cj, ck, vals):
                             cz + float(offs[c, 2] * cell[2])], -1)
 
     e_a, e_b = EDGE_CORNERS[:, 0].tolist(), EDGE_CORNERS[:, 1].tolist()
-    v1 = vals[:, e_a]
-    v2 = vals[:, e_b]
+    v1 = torch.stack([vals[:, a] for a in e_a], 1)   # an index list would be a host copy
+    v2 = torch.stack([vals[:, b] for b in e_b], 1)
     p1 = torch.stack([corner_xyz(a) for a in e_a], 1)
     p2 = torch.stack([corner_xyz(b) for b in e_b], 1)
     denom = v2 - v1
@@ -311,78 +382,76 @@ def _edge_points(cfg: TSDFConfig, ci, cj, ck, vals):
     return p1 + mu[..., None] * (p2 - p1)
 
 
-def _case_rows(cubeindex):
-    """Case-table rows of PCL cubeindices [N]: (edge ids [N, MAX, 3] int64,
-    triangle counts [N])."""
-    dev = cubeindex.device
-    table = torch.as_tensor(TRI_TABLE, dtype=torch.int64, device=dev)
-    count = torch.as_tensor(TRI_COUNT, dtype=torch.int64, device=dev)
-    entries = torch.clamp(table[cubeindex], min=0).reshape(-1, MAX_TRIS_PER_CUBE, 3)
-    return entries, count[cubeindex]
-
-
-def _triangles(cfg, global_transform, ci, cj, ck, vals, cubeindex):
-    """Every triangle of N cubes, in (cube, table slot) order: vertices
-    [T, 3, 3] after the global transform (cpp:122,128), and each triangle's
-    cube [T] int64. Every triangle slot of every cube is built, then the
-    valid ones are kept."""
+def _triangle_slots(cfg, global_transform, ci, cj, ck, vals, cubeindex):
+    """Every triangle slot of N cubes, in (cube, table slot) order:
+    vertices [N * MAX, 3, 3] after the global transform (cpp:122,128; a
+    slot past its cube's count holds edge 0's triangle) and each cube's
+    triangle count [N] int64."""
     M = MAX_TRIS_PER_CUBE
     N = vals.shape[0]
+    table, count = _tables(vals.device)
+    entries = torch.clamp(table[cubeindex], min=0).reshape(N, M, 3)
     pts = _edge_points(cfg, ci, cj, ck, vals)
-    entries, ntris = _case_rows(cubeindex)
     verts = pts[torch.arange(N, device=vals.device)[:, None, None], entries]  # [N,M,3,3]
-    valid = torch.arange(M, device=vals.device)[None, :] < ntris[:, None]
-    sel = torch.nonzero(valid.reshape(-1)).squeeze(1)
-    verts = verts.reshape(N * M, 3, 3)[sel]
+    verts = verts.reshape(N * M, 3, 3)
     x, y, z = transform_points(global_transform, verts[..., 0], verts[..., 1],
                                verts[..., 2])
-    return torch.stack([x, y, z], -1), sel // M
+    return torch.stack([x, y, z], -1), count[cubeindex]
 
 
-def _expand_colors(rgb):
-    """Per-triangle colors [T, 3] -> the soup's [T, 3, 3] (or None)."""
-    return None if rgb is None else rgb[:, None, :].expand(-1, 3, 3).contiguous()
-
-
-def _emit_soup(cfg, global_transform, ci, cj, ck, vals, center_rgb) -> MeshSoup:
-    """Plain route: the triangles of the N crossing cubes, colored by their
-    cube's center_rgb [N, 3] (or None)."""
-    verts, cube = _triangles(cfg, global_transform, ci, cj, ck, vals, _cube_index(vals))
-    rgb = None if center_rgb is None else center_rgb[cube]
-    return MeshSoup(vertices=verts, colors=_expand_colors(rgb),
-                    num_triangles=int(verts.shape[0]))
-
-
-def _emit_plain(bv, slots, count, cube, corners):
+def _emit_plain(bv, slots, count, cube, corners, tri_off, tri_budget: int):
     """Plain version of the emission kernel, on corner_halo's outputs:
-    (vertices [T, 3, 3] f32 after the global transform, tri_cube [T] int32
-    = slot * nv + voxel of each triangle's cube), in candidate order, then
-    rank, then case-table slot."""
-    cfg, B = bv.config, bv.brick_size
+    fixed shapes, no host sync. The crossing cubes whose first triangle
+    falls below tri_budget are compacted (a crossing cube has at least one
+    triangle, so at most tri_budget of them), their triangle slots built and
+    each triangle placed at its rank. See :func:`emit_triangles`; rows
+    from the total on are unspecified."""
+    from ..activation import _compact
+
+    cfg, B, C = bv.config, bv.brick_size, bv.capacity
     nv = B ** 3
-    live = torch.arange(nv, device=cube.device)[None, :] < count[:, None]
-    k, r = torch.nonzero(live, as_tuple=True)
-    code = cube[k, r].long()
+    K = slots.shape[0]
+    M = MAX_TRIS_PER_CUBE
+    dev = cube.device
+    live = torch.arange(nv, device=dev)[None, :] < count[:, None]           # [K, nv]
+    code = torch.where(live, cube, 0).long()
+    ntri = torch.where(live, _tables(dev)[1][code // nv], 0)
+    first = tri_off[:, None] + torch.cumsum(ntri, 1) - ntri                 # [K, nv]
+    ids, _ = _compact((live & (first < tri_budget)).reshape(-1),
+                      torch.arange(K * nv, dtype=torch.int32, device=dev),
+                      min(tri_budget, K * nv))
+    ok = ids >= 0
+    i = torch.clamp(ids, min=0).long()
+    code, k = code.reshape(-1)[i], i // nv
     within, cubeindex = code % nv, code // nv
-    brick = slots[k].long()
+    brick = torch.clamp(slots[k], 0, C - 1).long()
     cs = bv.coords[brick]
-    verts, of = _triangles(cfg, bv.global_transform, cs[:, 0] * B + within // (B * B),
-                           cs[:, 1] * B + (within // B) % B, cs[:, 2] * B + within % B,
-                           corners[k, r] * cfg.max_dist_neg, cubeindex)
-    return verts, (brick * nv + within)[of].to(torch.int32)
+    verts, nt = _triangle_slots(cfg, bv.global_transform, cs[:, 0] * B + within // (B * B),
+                                cs[:, 1] * B + (within // B) % B, cs[:, 2] * B + within % B,
+                                corners.reshape(-1, 8)[i] * cfg.max_dist_neg, cubeindex)
+    slot = torch.arange(M, device=dev)[None, :]
+    dest = first.reshape(-1)[i][:, None] + slot                              # [N, M]
+    keep = ok[:, None] & (slot < nt[:, None]) & (dest < tri_budget)
+    sel = torch.zeros((tri_budget + 1,), dtype=torch.int64, device=dev)
+    sel.scatter_(0, torch.where(keep, dest, tri_budget).reshape(-1).long(),
+                 torch.arange(keep.numel(), device=dev))       # index tri_budget takes the rest
+    sel = sel[:tri_budget]
+    return verts[sel], (brick * nv + within)[sel // M].to(torch.int32)
 
 
-def emit_triangles(bv, slots, count, cube, corners, tri_off, n_tri: int):
-    """The triangles of corner_halo's crossing cubes: (vertices [n_tri, 3, 3]
-    f32 after the global transform, tri_cube [n_tri] int32 = slot * B^3 +
-    voxel of each triangle's cube), in candidate order, then rank, then
-    case-table slot. tri_off int32 [K] is each brick's first triangle (the
-    exclusive prefix sum of corner_halo's ntri) and n_tri the total.
+def emit_triangles(bv, slots, count, cube, corners, tri_off, tri_budget: int):
+    """The triangles of corner_halo's crossing cubes: (vertices
+    [tri_budget, 3, 3] f32 after the global transform, tri_cube
+    [tri_budget] int32 = slot * B^3 + voxel of each triangle's cube), in
+    candidate order, then rank, then case-table slot. tri_off int32 [K] is
+    each brick's first triangle (the exclusive prefix sum of corner_halo's
+    ntri); a triangle at or past tri_budget is not stored, and the rows
+    from the total on are unspecified.
 
     On CPU tensors: :func:`_emit_plain`. On CUDA tensors: csrc/mc_emit.cu,
     for every even brick size."""
     if bv.device.type == "cpu":
-        return _emit_plain(bv, slots, count, cube, corners)
+        return _emit_plain(bv, slots, count, cube, corners, tri_off, tri_budget)
     from .._build import check, check_tensor, function, stream_ptr
 
     dev = bv.device
@@ -399,19 +468,19 @@ def emit_triangles(bv, slots, count, cube, corners, tri_off, n_tri: int):
         check_tensor(f"emit_triangles: {what}", t, dt, shape, dev)
     if corners.data_ptr() % 16:
         raise ValueError("emit_triangles: corners must be 16-byte aligned")
-    verts = torch.empty((n_tri, 3, 3), dtype=torch.float32, device=dev)
-    tri_cube = torch.empty((n_tri,), dtype=torch.int32, device=dev)
-    if K == 0 or n_tri == 0:
+    verts = torch.empty((tri_budget, 3, 3), dtype=torch.float32, device=dev)
+    tri_cube = torch.empty((tri_budget,), dtype=torch.int32, device=dev)
+    if K == 0 or tri_budget == 0:
         return verts, tri_cube
     cfg = bv.config
     grid = (ctypes.c_float * 7)(*cfg.cell_size, cfg.xsize / 2.0, cfg.ysize / 2.0,
                                 cfg.zsize / 2.0, cfg.max_dist_neg)
     p = ctypes.c_void_p
     fn = function("mc_emit", "tsdf_mc_emit",
-                  [p] * 7 + [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_float), p, p, p])
+                  [p] * 7 + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_float), p, p, p])
     err = fn(slots.data_ptr(), bv.coords.data_ptr(), count.data_ptr(), cube.data_ptr(),
              corners.data_ptr(), tri_off.data_ptr(), bv.global_transform.data_ptr(), K,
-             B, grid, verts.data_ptr(), tri_cube.data_ptr(), stream_ptr(dev))
+             B, tri_budget, grid, verts.data_ptr(), tri_cube.data_ptr(), stream_ptr(dev))
     check(err, "emit_triangles")
     launches["emit"] += 1
     return verts, tri_cube
@@ -435,69 +504,229 @@ def _voxel_rgb(bv, flat, color_by_rgb: bool, color_by_confidence: bool):
     return None
 
 
-def _empty_soup(device, colored: bool) -> MeshSoup:
-    z = torch.zeros((0, 3, 3), dtype=torch.float32, device=device)
-    return MeshSoup(vertices=z, colors=z.clone() if colored else None, num_triangles=0)
+def _expand_colors(rgb):
+    """Per-triangle colors [T, 3] -> the soup's [T, 3, 3] (or None)."""
+    return None if rgb is None else rgb[:, None, :].expand(-1, 3, 3).contiguous()
 
 
 # ---------------------------------------------------------------------------
-# extraction entry points
+# the chunk program and the extraction entry points
 # ---------------------------------------------------------------------------
+
+def _extract_chunk(bv, stats, slot0: int, chunk_slots: int, cube_budget: int,
+                   brick_budget: int, tri_budget: int, min_weight: float,
+                   color_by_rgb: bool, color_by_confidence: bool, kernel: bool):
+    """Triangles of the cubes whose lower corner lies in bricks [slot0,
+    slot0 + chunk_slots): fixed shapes, no host sync. `stats` is
+    :func:`_brick_stats`' pair; ``kernel`` takes the kernel wrappers (which
+    run their plain versions on CPU tensors), else the plain versions.
+    Returns (vertices [tri_budget, 3, 3], colors [tri_budget, 3, 3] or None,
+    tri_valid [tri_budget] bool, out int32 [6]: n_tris, cube_ovf, brick_ovf,
+    tri_ovf, n_cubes, n_bricks), the JAX package's ``out``."""
+    from ..activation import _compact
+
+    C, dev = bv.capacity, bv.device
+    slots = torch.arange(slot0, slot0 + chunk_slots, dtype=torch.int32, device=dev)
+    cand = _candidate_mask(bv, stats, bv.coords[slot0:slot0 + chunk_slots])
+    bidx, n_bricks = _compact(cand, slots, brick_budget)
+    cand_slots = torch.where(bidx >= 0, bidx, C)
+    halo, emit = (corner_halo, emit_triangles) if kernel else (_corner_halo_plain, _emit_plain)
+    count, cube, corners, ntri = halo(bv, cand_slots, min_weight)
+    n_cubes = count.sum(dtype=torch.int32)
+    ends = torch.cumsum(ntri, 0, dtype=torch.int32)
+    n_tri = ends[-1]
+    verts, tri_cube = emit(bv, cand_slots, count, cube, corners, ends - ntri, tri_budget)
+    tri_valid = torch.arange(tri_budget, device=dev) < n_tri
+    rgb = _voxel_rgb(bv, torch.where(tri_valid, tri_cube, 0), color_by_rgb,
+                     color_by_confidence)
+    out = torch.stack([n_tri, (n_cubes > cube_budget).to(torch.int32),
+                       (n_bricks > brick_budget).to(torch.int32),
+                       (n_tri > tri_budget).to(torch.int32), n_cubes, n_bricks])
+    return verts, _expand_colors(rgb), tri_valid, out
+
+
+def _live_chunks(bv, chunk_slots: int) -> tuple:
+    """Start slots of the chunks holding a live brick (one host sync when
+    there is more than one chunk)."""
+    nchunks = bv.capacity // chunk_slots
+    if nchunks == 1:
+        return (0,)
+    live = (bv.coords[:, 0] >= 0).reshape(nchunks, -1).any(1).tolist()
+    return tuple(i * chunk_slots for i in range(nchunks) if live[i]) or (0,)
+
+
+def _resolve_engine(corner_engine: Optional[str], use_kernel: Optional[bool], device) -> bool:
+    """The route of an extraction: corner_engine "pallas" takes the
+    kernels, "xla" and "interpret" the plain route, None leaves it to
+    use_kernel (None = the kernels on the card, the plain route on the
+    CPU). The kernels on the CPU, or two switches that disagree, raise."""
+    if corner_engine is None:
+        return resolve_use_kernel(use_kernel, device)
+    if corner_engine not in _ENGINES:
+        raise ValueError(f"corner_engine must be one of {sorted(_ENGINES)} or None, "
+                         f"got {corner_engine!r}")
+    kernel = _ENGINES[corner_engine]
+    if use_kernel is not None and bool(use_kernel) != kernel:
+        raise ValueError(f"corner_engine={corner_engine!r} and use_kernel={use_kernel} "
+                         "name different routes")
+    return resolve_use_kernel(kernel, device)
+
+
+def _roundup(n: int, step: int, lo: int) -> int:
+    """n rounded up to a multiple of step, at least lo: the JAX package's
+    grid of budget hints."""
+    return max(lo, (int(n) + step - 1) // step * step)
+
 
 def extract_soup_bricks(bv, min_weight: float = DEFAULT_MIN_WEIGHT,
                         color_by_rgb: bool = False,
                         color_by_confidence: bool = False,
-                        use_kernel: Optional[bool] = None) -> MeshSoup:
-    """Brick-native extraction on the volume's device.
+                        chunk_slots: int = 2048,
+                        cube_budget: int = 1 << 15,
+                        tri_budget: Optional[int] = None,
+                        live_chunks: Optional[tuple] = None,
+                        budget_hint: Optional[tuple] = None,
+                        check: bool = True,
+                        corner_engine: Optional[str] = None, *,
+                        use_kernel: Optional[bool] = None,
+                        graph: Optional[bool] = None) -> MeshSoup:
+    """Brick-native extraction on the volume's device, chunk by chunk over
+    the live chunks (see the module docstring).
 
-    use_kernel: None = the corner-halo and emission kernels on the card, the
-    plain route on the CPU; False = the plain route anywhere; True on the
-    CPU raises."""
-    return _extract(bv, min_weight, color_by_rgb, color_by_confidence,
-                    resolve_use_kernel(use_kernel, bv.device))
+    The budgets are the JAX package's: ``chunk_slots`` slots a chunk
+    (clamped to the capacity and halved until it divides it), per chunk a
+    cube, brick (min(chunk_slots, max(256, cube_budget // 64))) and
+    triangle (2 * cube_budget) budget. ``live_chunks`` (chunk start slots)
+    skips the liveness readback; ``budget_hint`` (a soup's, aligned with its
+    live_chunks) sizes each chunk's (cube, brick, tri) budgets.
+
+    check=True: one host sync a batch of chunks; a chunk that overflowed a
+    budget runs again with it doubled; the soup is compact, in live-chunk
+    order, with tight hints (25 % headroom). check=False: no host sync; the
+    soup keeps the per-chunk buffers, tri_valid is a (non-prefix) mask and
+    num_triangles / overflowed stay on the device: callers check
+    overflowed before trusting it.
+
+    corner_engine: "pallas" = the corner-halo and emission kernels (the
+    CPU raises); "xla" or "interpret" = the plain route; None = use_kernel
+    (None: the kernels on the card, the plain route on the CPU; False: the
+    plain route; True on the CPU raises). graph (check=False only): None =
+    on the card the CUDA graph of the chunk programs (``graph.
+    extract_graphed``, captured at the first call of this volume, these
+    settings, chunks and budgets, which runs as its warm-up; fresh
+    tensors), eager on the CPU and on the plain route; False = eager; True
+    raises where the graph cannot run (the CPU, the plain route, check)."""
+    kernel = _resolve_engine(corner_engine, use_kernel, bv.device)
+    return _extract(bv, min_weight, color_by_rgb, color_by_confidence, kernel, chunk_slots,
+                    cube_budget, tri_budget, live_chunks, budget_hint, check, graph)
 
 
-def _extract(bv, min_weight, color_by_rgb, color_by_confidence, kernel: bool):
-    """extract_soup_bricks with the route chosen: ``kernel`` goes through the
-    kernel wrappers (which run their plain versions on CPU tensors)."""
-    cfg, B = bv.config, bv.brick_size
-    nv = B ** 3
-    colored = color_by_confidence or (color_by_rgb and bv.color is not None)
-    cand = _candidate_slots(bv, min_weight)               # host sync 1
-    if cand.shape[0] == 0:
-        return _empty_soup(bv.device, colored)
-    if kernel:
-        count, cube, corners, ntri = corner_halo(bv, cand, min_weight)
-        ends = torch.cumsum(ntri, 0, dtype=torch.int32)
-        n_tri = int(ends[-1])                               # host sync 2
-        if n_tri == 0:
-            return _empty_soup(bv.device, colored)
-        verts, tri_cube = emit_triangles(bv, cand, count, cube, corners, ends - ntri, n_tri)
-        rgb = _voxel_rgb(bv, tri_cube, color_by_rgb, color_by_confidence)
-        return MeshSoup(vertices=verts, colors=_expand_colors(rgb), num_triangles=n_tri)
+def _extract(bv, min_weight, color_by_rgb, color_by_confidence, kernel: bool,
+             chunk_slots: int = 2048, cube_budget: int = 1 << 15,
+             tri_budget: Optional[int] = None, live_chunks=None, budget_hint=None,
+             check: bool = True, graph: Optional[bool] = None) -> MeshSoup:
+    """extract_soup_bricks with the route chosen."""
+    from ..graph import extract_graphed, resolve_graph
 
-    dstack, ok = _corner_stacks(bv, cand, min_weight)
-    ids = torch.nonzero(ok.reshape(-1)).squeeze(1)          # host sync 2
-    if ids.shape[0] == 0:
-        return _empty_soup(bv.device, colored)
-    brick = cand[ids // nv].long()                 # slot of each crossing cube
-    within = ids % nv
-    vals = dstack[ids] * cfg.max_dist_neg          # [N, 8] meters (cpp:105)
-    cs = bv.coords[brick]
-    ci = cs[:, 0] * B + within // (B * B)
-    cj = cs[:, 1] * B + (within // B) % B
-    ck = cs[:, 2] * B + within % B
-    center_rgb = _voxel_rgb(bv, brick * nv + within, color_by_rgb, color_by_confidence)
-    return _emit_soup(cfg, bv.global_transform, ci, cj, ck, vals, center_rgb)
+    dev = bv.device
+    chunk_slots = min(chunk_slots, bv.capacity)
+    while bv.capacity % chunk_slots:  # chunks must tile the slot range exactly
+        chunk_slots //= 2
+    if tri_budget is None:
+        tri_budget = cube_budget * 2
+    live_chunks = (_live_chunks(bv, chunk_slots) if live_chunks is None
+                   else tuple(int(s) for s in live_chunks))
+    kb0 = min(chunk_slots, max(256, cube_budget // 64))
+    if budget_hint is not None and len(budget_hint) != len(live_chunks):
+        raise ValueError(
+            f"budget_hint has {len(budget_hint)} entries for "
+            f"{len(live_chunks)} live chunks; pass the live_chunks the hint "
+            f"was measured on alongside it")
+    budgets = (tuple(tuple(int(b) for b in h) for h in budget_hint) if budget_hint is not None
+               else ((cube_budget, kb0, tri_budget),) * len(live_chunks))
+    args = (min_weight, color_by_rgb, color_by_confidence, kernel, chunk_slots, live_chunks,
+            budgets)
+    use_graph = resolve_graph(graph, dev)
+    if use_graph and (check or not kernel):
+        if graph:
+            raise ValueError("extract_soup_bricks: the extraction graph is the unchecked "
+                             "(check=False) kernel route")
+        use_graph = False
+    if not check:
+        return extract_graphed(bv, *args) if use_graph else _extract_unchecked(bv, *args)
+
+    stats = _brick_stats(bv, live_chunks, chunk_slots, min_weight)
+    pending = [(s0, *b) for s0, b in zip(live_chunks, budgets)]
+    done, hints = {}, {}
+    while pending:
+        runs = [(s0, cb, kb, tb, _extract_chunk(bv, stats, s0, chunk_slots, cb, kb, tb,
+                                                min_weight, color_by_rgb,
+                                                color_by_confidence, kernel))
+                for s0, cb, kb, tb in pending]
+        counts = torch.stack([r[4][3] for r in runs]).tolist()    # one host sync a batch
+        logging.getLogger("cpu_tsdf_tpu_torch").debug(
+            "extract_soup_bricks: batch of %d chunks, (slot, cube, brick, tri) budgets %s, "
+            "(n_tri, cube_ovf, brick_ovf, tri_ovf, n_cubes, n_bricks) %s",
+            len(runs), [r[:4] for r in runs], counts)
+        pending = []
+        for (s0, cb, kb, tb, (v, c, _, _)), st in zip(runs, counts):
+            n, cube_ovf, brick_ovf, tri_ovf, n_cubes, n_bricks = st
+            if brick_ovf:
+                pending.append((s0, cb, min(chunk_slots, kb * 2), tb))
+            elif cube_ovf:
+                pending.append((s0, cb * 2, kb, tb))
+            elif tri_ovf:
+                pending.append((s0, cb, kb, tb * 2))
+            else:
+                # tight budgets (25% headroom) for later unchecked calls
+                hints[s0] = (_roundup(n_cubes * 5 // 4, 1 << 12, 1 << 10),
+                             min(chunk_slots, _roundup(n_bricks * 5 // 4, 128, 256)),
+                             _roundup(n * 5 // 4, 1 << 12, 1 << 11))
+                done[s0] = (v[:n], None if c is None else c[:n])
+    parts = [done[s0] for s0 in live_chunks if done[s0][0].shape[0]]
+    verts = (torch.cat([p[0] for p in parts]) if parts
+             else torch.zeros((0, 3, 3), dtype=torch.float32, device=dev))
+    colors = None
+    if color_by_confidence or (color_by_rgb and bv.color is not None):
+        colors = torch.cat([p[1] for p in parts]) if parts else verts.clone()
+    total = verts.shape[0]
+    return MeshSoup(vertices=verts, colors=colors,
+                    tri_valid=torch.ones((total,), dtype=torch.bool, device=dev),
+                    num_triangles=torch.full((), total, dtype=torch.int32, device=dev),
+                    overflowed=torch.zeros((), dtype=torch.bool, device=dev),
+                    live_chunks=live_chunks,
+                    budget_hint=tuple(hints[s0] for s0 in live_chunks))
+
+
+def _extract_unchecked(bv, min_weight, color_by_rgb, color_by_confidence, kernel: bool,
+                       chunk_slots: int, live_chunks: tuple, budgets: tuple) -> MeshSoup:
+    """The check=False extraction: every live chunk's program at its
+    budgets, concatenated; fixed shapes, no host sync (the graph of
+    ``graph.extract_graphed`` captures it)."""
+    stats = _brick_stats(bv, live_chunks, chunk_slots, min_weight)
+    outs = [_extract_chunk(bv, stats, s0, chunk_slots, cb, kb, tb, min_weight, color_by_rgb,
+                           color_by_confidence, kernel)
+            for s0, (cb, kb, tb) in zip(live_chunks, budgets)]
+
+    def cat(i):
+        return outs[0][i] if len(outs) == 1 else torch.cat([o[i] for o in outs])
+
+    counts = torch.stack([o[3] for o in outs])                       # [chunks, 6]
+    return MeshSoup(vertices=cat(0), colors=None if outs[0][1] is None else cat(1),
+                    tri_valid=cat(2), num_triangles=counts[:, 0].sum(dtype=torch.int32),
+                    overflowed=(counts[:, 1:4] > 0).any(),
+                    live_chunks=live_chunks, budget_hint=budgets)
 
 
 def extract_mesh_bricks(bv, min_weight: float = DEFAULT_MIN_WEIGHT,
                         color_by_rgb: bool = False,
                         color_by_confidence: bool = False,
+                        chunk_slots: int = 2048, cube_budget: int = 1 << 15, *,
                         use_kernel: Optional[bool] = None):
-    """Brick-native extraction returning numpy (V, F, C | None)."""
+    """Brick-native extraction (the checked route) returning numpy
+    (V, F, C | None)."""
     return extract_soup_bricks(bv, min_weight, color_by_rgb, color_by_confidence,
-                               use_kernel).to_numpy()
+                               chunk_slots, cube_budget, use_kernel=use_kernel).to_numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -533,51 +762,74 @@ def count_active_cubes(vol, min_weight: float = DEFAULT_MIN_WEIGHT) -> int:
 
 
 def marching_cubes(vol, min_weight: float = DEFAULT_MIN_WEIGHT,
-                   color_by_rgb: bool = False,
+                   max_cubes: int = 1 << 18, color_by_rgb: bool = False,
                    color_by_confidence: bool = False) -> MeshSoup:
-    """The dense route: every crossing cube of a dense TSDFVolume, in
-    cube-major order (the JAX package's ``marching_cubes``), sized from the
-    exact count (one ``nonzero``), so there is no cube budget to overflow.
-    Plain torch ops on the volume's device."""
+    """The dense route, the JAX package's fixed-budget program: the
+    crossing cubes of a dense TSDFVolume compacted to max_cubes in
+    cube-major order (no host sync), every triangle slot of each (vertices
+    [max_cubes * MAX, 3, 3], tri_valid), num_triangles, and overflowed =
+    more crossing cubes than max_cubes (those past it are dropped). Plain
+    torch ops on the volume's device."""
+    from ..activation import _compact
+
     cfg = vol.config
-    X, Y, Z = cfg.xres, cfg.yres, cfg.zres
-    ids = torch.nonzero(active_cube_mask(vol, min_weight).reshape(-1)).squeeze(1)
-    colored = color_by_confidence or (color_by_rgb and vol.color is not None)
-    if ids.shape[0] == 0:
-        return _empty_soup(vol.device, colored)
+    Y, Z = cfg.yres, cfg.zres
+    mask = active_cube_mask(vol, min_weight).reshape(-1)
+    ids, n_active = _compact(mask, torch.arange(mask.shape[0], dtype=torch.int32,
+                                                device=mask.device), max_cubes)
+    cube_ok = ids >= 0
+    ids = torch.clamp(ids, min=0).long()
     ci = ids // ((Y - 1) * (Z - 1))
     cj = (ids // (Z - 1)) % (Y - 1)
     ck = ids % (Z - 1)
-    offs = torch.as_tensor(CORNER_OFFSETS, dtype=torch.int64, device=ids.device)
-    corner = (((ci[:, None] + offs[:, 0]) * Y + (cj[:, None] + offs[:, 1])) * Z
-              + (ck[:, None] + offs[:, 2]))
+    corner = torch.stack([((ci + ox) * Y + (cj + oy)) * Z + (ck + oz)
+                          for ox, oy, oz in CORNER_OFFSETS.tolist()], 1)
     vals = vol.sdf.reshape(-1)[corner] * cfg.max_dist_neg     # [N, 8] meters (cpp:105)
-    center_rgb = _voxel_rgb(vol, corner[:, 0], color_by_rgb, color_by_confidence)
-    return _emit_soup(cfg, vol.global_transform, ci, cj, ck, vals, center_rgb)
+    verts, ntris = _triangle_slots(cfg, vol.global_transform, ci, cj, ck, vals,
+                                   _cube_index(vals))
+    ntris = torch.where(cube_ok, ntris, 0)
+    M = MAX_TRIS_PER_CUBE
+    tri_valid = (torch.arange(M, device=ids.device)[None, :] < ntris[:, None]).reshape(-1)
+    rgb = _voxel_rgb(vol, corner[:, 0], color_by_rgb, color_by_confidence)
+    colors = None if rgb is None else _expand_colors(rgb.repeat_interleave(M, 0))
+    return MeshSoup(vertices=verts, colors=colors, tri_valid=tri_valid,
+                    num_triangles=ntris.sum(dtype=torch.int32),
+                    overflowed=n_active > max_cubes)
 
 
 def extract_mesh(vol, min_weight: float = DEFAULT_MIN_WEIGHT,
                  color_by_rgb: bool = False, color_by_confidence: bool = False,
-                 use_kernel: Optional[bool] = None):
+                 max_cubes: Optional[int] = None, *, use_kernel: Optional[bool] = None):
     """Extract the isosurface as numpy (vertices [N*3, 3], faces [N, 3],
     colors [N*3, 3] | None).
 
-    A brick volume takes the brick route. A dense volume takes it too when
-    the kernels run (``bricks.from_dense(vol, 8)``, then the corner-halo and
-    emission kernels), else the dense route :func:`marching_cubes`; the two
-    give the same triangles in another order. use_kernel: None = the
-    kernels on the card and the plain routes on the CPU; False = the plain
-    routes anywhere; True on the CPU raises."""
+    A brick volume takes the brick route (checked). A dense volume takes it
+    too when the kernels run (``bricks.from_dense(vol, 8)``, then the
+    corner-halo and emission kernels), else the dense route
+    :func:`marching_cubes`; the two give the same triangles in another
+    order. max_cubes: on the dense route the exact cube budget (None: the
+    next power of two of the crossing cubes, at least 1024; an overflow
+    raises); on the brick route the per-chunk cube budget it starts from.
+    use_kernel: None = the kernels on the card and the plain routes on the
+    CPU; False = the plain routes anywhere; True on the CPU raises."""
     from ..bricks import BrickVolume, from_dense
 
+    bargs = {} if max_cubes is None else {"cube_budget": int(max_cubes)}
     if isinstance(vol, BrickVolume):
         return extract_mesh_bricks(vol, min_weight, color_by_rgb, color_by_confidence,
-                                   use_kernel)
+                                   use_kernel=use_kernel, **bargs)
     if resolve_use_kernel(use_kernel, vol.device):
         # from_dense sizes its capacity from the observed bricks: no overflow
         return extract_mesh_bricks(from_dense(vol, 8), min_weight, color_by_rgb,
-                                   color_by_confidence, True)
-    return marching_cubes(vol, min_weight, color_by_rgb, color_by_confidence).to_numpy()
+                                   color_by_confidence, use_kernel=True, **bargs)
+    if max_cubes is None:
+        n = count_active_cubes(vol, min_weight)
+        max_cubes = max(1024, 1 << int(np.ceil(np.log2(max(n, 1)))))
+    soup = marching_cubes(vol, min_weight, max_cubes, color_by_rgb, color_by_confidence)
+    if bool(soup.overflowed):
+        raise RuntimeError(
+            f"marching_cubes budget {max_cubes} overflowed; pass a larger max_cubes")
+    return soup.to_numpy()
 
 
 def bytes_moved_corner_halo(n_bricks: int, n_cubes: int, B: int = 8) -> int:
@@ -599,6 +851,6 @@ def bytes_moved_dense_stack(n_bricks: int, B: int = 8) -> int:
 def bytes_moved_emit(n_bricks: int, n_cubes: int, n_tris: int) -> int:
     """Least traffic of one emit_triangles call: per candidate its slot,
     coords, count and first triangle (24 B); per crossing cube its code and
-    8 corners (36 B); the transform's 3 rows (48 B); per triangle its 3
-    vertices and cube reference written (40 B)."""
+    8 corners (36 B); the transform's 3 rows (48 B); per triangle stored
+    (below the budget) its 3 vertices and cube reference written (40 B)."""
     return n_bricks * 24 + n_cubes * 36 + 48 + n_tris * 40

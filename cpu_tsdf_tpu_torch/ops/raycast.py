@@ -68,7 +68,7 @@ def camera_rays(cfg: TSDFConfig, pose, downsample_by: int = 1):
     return pose[:3, 3][None, :].expand(N, 3), torch.stack([dx, dy, dz], -1)
 
 
-def render_rays(vol, origins, dirs, max_steps: int = 512, colored: bool = False,
+def render_rays(vol, origins, dirs, max_steps: int = 512, colored: bool = False, *,
                 use_kernel: Optional[bool] = None) -> dict:
     """March arbitrary rays (float32 [N, 3] origins and unit dirs in the
     VOLUME frame) through a dense, brick or packed volume (a volume that is
@@ -109,13 +109,17 @@ def rays_from_channels(vol, origins, dirs, ch, colored: bool) -> dict:
 
 
 def render_view(vol, pose, downsample_by: int = 1, max_steps: int = 512,
-                colored: bool = False, use_kernel: Optional[bool] = None,
+                colored: bool = False, packed: bool = True, *,
+                use_kernel: Optional[bool] = None,
                 graph: Optional[bool] = None) -> RenderResult:
     """Render the volume from a camera pose (camera-to-volume [4, 4]).
 
     `vol` is a dense or brick volume, packed here into the render view
     (``bricks.pack_render``), or an already packed ``PackedRenderVolume``,
     which amortizes the packing across renders of one volume state.
+    `packed` is the JAX package's switch between the packed and the
+    unpacked march, whose results it documents as identical; the port
+    always packs, and accepts and ignores it.
     use_kernel: None = the CUDA kernel on the card and the plain march on
     the CPU; False = the plain march anywhere. graph: None = on the card,
     the render's CUDA graph (``graph.render_graphed``: captured at the
@@ -154,7 +158,7 @@ def _render(vol, pose, downsample_by: int, max_steps: int, colored: bool,
     and no host sync (the graph of ``graph.render_graphed`` captures it)."""
     cfg = vol.config
     origins, dirs = camera_rays(cfg, pose, downsample_by)
-    r = render_rays(vol, origins, dirs, max_steps, colored, kernel)
+    r = render_rays(vol, origins, dirs, max_steps, colored, use_kernel=kernel)
     return assemble_view(cfg, pose, r, cfg.image_height // downsample_by,
                          cfg.image_width // downsample_by)
 

@@ -81,7 +81,7 @@ class ShardedBrickVolume:
 
 
 def make_sharded_brick_volume(cfg: TSDFConfig, mesh, brick_size: int = 8,
-                              capacity_per_device: int = 1 << 12,
+                              capacity_per_device: int = 1 << 12, *,
                               device=None) -> ShardedBrickVolume:
     """This rank's part of an empty slab-sharded brick volume, on `device`
     (default CUDA). The slab count is the size of the mesh's slab dim (a

@@ -49,7 +49,7 @@ def backend_for(device, ranks_per_host: int) -> str:
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,
-               local_device_ids: Optional[Sequence[int]] = None,
+               local_device_ids: Optional[Sequence[int]] = None, *,
                device=None) -> bool:
     """Start the process group of this rank (once; later calls are no-ops).
 
@@ -158,14 +158,14 @@ def broadcast(t, src: int, group=None):
     return h.to(device=t.device, dtype=t.dtype)
 
 
-def replicate_to_mesh(x, mesh, device=None):
+def replicate_to_mesh(x, mesh, *, device=None):
     """Host data as one tensor on every rank of the mesh: the value of the
     mesh's first rank, broadcast (every rank passes its own copy)."""
     t = torch.as_tensor(np.asarray(x), device=resolve_device(device))
     return broadcast(t, int(mesh.mesh.flatten()[0]))
 
 
-def shard_to_mesh(x, mesh, spec, device=None):
+def shard_to_mesh(x, mesh, spec, *, device=None):
     """This rank's block of a GLOBAL host array that every rank passes
     whole. spec names, for each leading axis of x, the mesh dim it is split
     over, or None (a PartitionSpec as a tuple: (AXIS,) splits axis 0 over

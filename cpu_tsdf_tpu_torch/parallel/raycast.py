@@ -43,7 +43,7 @@ def render_view_pallas_sharded(vol, pose, mesh, downsample_by: int = 1,
                                colored: bool = False, pack=None,
                                r_budget: int = 4096, pair_budget: int = 32768,
                                pair_budget_local: Optional[int] = None,
-                               interpret: bool = False, max_steps: int = 512):
+                               interpret: bool = False, *, max_steps: int = 512):
     """Render with image-row bands split over the ranks, each band marched
     with the ray-march kernel (the multi-card ``renderView``).
 
@@ -224,7 +224,7 @@ def _slab_colors(bv, hx, hy, hz, group):
 
 def render_view_volume_sharded(bv, pose, mesh=None, downsample_by: int = 1,
                                colored: bool = False, r_budget_local: int = 2048,
-                               pair_budget_local: int = 8192, interpret: bool = False,
+                               pair_budget_local: int = 8192, interpret: bool = False, *,
                                max_steps: int = 512):
     """Render a SLAB-SHARDED brick volume (``parallel.bricks``) without
     replicating it: each rank packs its own slab plus one ghost brick plane

@@ -9,8 +9,9 @@ cpu_tsdf/src/prog/integrate.cpp):
   * VoxelGrid downsampling for --cloud-only          integrate.cpp:662-669
 
 ``organize_cloud`` runs in torch ops on the device it is given (CUDA by
-default); the mesh and cloud passes are numpy on the host, copied from the
-JAX package.
+default), on the card as a CUDA graph (the counterpart of the JAX
+package's jitted ``_organize_jit``); the mesh and cloud passes are numpy on
+the host, copied from the JAX package.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ def _pixel(f, hi: int):
     return pixel_index(torch.nan_to_num(f, nan=0.0), hi)
 
 
-def organize_cloud(cfg: TSDFConfig, points, rgb=None, device=None):
+def organize_cloud(cfg: TSDFConfig, points, rgb=None, *, device=None,
+                   graph: Optional[bool] = None):
     """Reproject an unorganized cloud into an organized depth (+rgb) image,
     keeping the nearest depth per pixel (scatter-min). Matches
     integrate.cpp:582-635 including the truncation-toward-zero pixel math.
@@ -44,10 +46,26 @@ def organize_cloud(cfg: TSDFConfig, points, rgb=None, device=None):
 
     Of the points tied at a pixel's nearest depth, the one with the largest
     index gives the pixel its color: a deterministic "last nearest wins",
-    the reference's scan order, and what the JAX package gives on the CPU."""
+    the reference's scan order, and what the JAX package gives on the CPU.
+
+    graph: None = on the card the CUDA graph of the cloud's length padded
+    to a power of two (``graph.organize_graphed``), eager on the CPU; False
+    = eager; True on the CPU raises."""
+    from .graph import organize_graphed, resolve_graph
+
     dev = resolve_device(device)
-    W, H = cfg.image_width, cfg.image_height
     pts = torch.as_tensor(points, dtype=torch.float32, device=dev)
+    if rgb is not None:
+        rgb = torch.as_tensor(rgb, dtype=torch.float32, device=dev)
+    if resolve_graph(graph, dev):
+        return organize_graphed(cfg, pts, rgb)
+    return _organize(cfg, pts, rgb)
+
+
+def _organize(cfg: TSDFConfig, pts, rgb=None):
+    """organize_cloud on device tensors: fixed shapes, no host sync."""
+    dev = pts.device
+    W, H = cfg.image_width, cfg.image_height
     x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
     # the 1e-3-pixel nudge keeps points that sit on pixel centers (clouds
     # backprojected from depth images) from flipping into the neighbour
@@ -62,7 +80,6 @@ def organize_cloud(cfg: TSDFConfig, points, rgb=None, device=None):
     out_depth = torch.where(torch.isinf(out_depth), float("nan"), out_depth)
     if rgb is None:
         return out_depth, None
-    rgb = torch.as_tensor(rgb, dtype=torch.float32, device=dev)
     winner = ok & (zsafe == depth[lin])
     idx = torch.where(winner, torch.arange(len(z), device=dev), -1)
     best = torch.full((W * H + 1,), -1, dtype=torch.int64, device=dev)

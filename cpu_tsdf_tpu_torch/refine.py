@@ -13,11 +13,18 @@ written as elementwise products and sums: they stay full float32 on the
 card whatever ``torch.backends.cuda.matmul.allow_tf32`` says (a TF32
 product keeps about three decimal digits, which would wreck the step's
 conditioning as bf16 does on the TPU).
+
+A step (:func:`_step`) and the residual (:func:`_residual`) are programs of
+fixed shapes with no host sync, the counterparts of the JAX package's
+jitted ``refine_pose_step`` and ``_residual_jit``: on the card each runs as
+a CUDA graph (``graph.refine_graphed``) keyed by the volume, the depth's
+shape and ``downsample_by``, its pose, depth and step scale static input
+buffers.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -56,7 +63,8 @@ def exp_se3(twist):
     R = torch.where(small, eye, R)
     V = torch.where(small, eye, V)
     t = (V * v[None, :]).sum(1)
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=torch.float32, device=twist.device)
+    # made on the device: a row copied from the host would be a host sync
+    bottom = torch.eye(4, dtype=torch.float32, device=twist.device)[3:]
     return torch.cat([torch.cat([R, t[:, None]], 1), bottom], 0)
 
 
@@ -66,11 +74,23 @@ def _compose(a, b):
 
 
 def depth_residual(vol, pose, depth_obs, downsample_by: int = 1,
-                   max_steps: int = 256):
+                   max_steps: int = 256, *, graph: Optional[bool] = None):
     """Point-to-TSDF alignment loss: the mean Huber (delta = 0.01 m) of the
     valid points' residuals, as a 0-dim tensor. `max_steps` is accepted and
-    unused, as in the JAX package."""
-    pose = torch.as_tensor(pose, dtype=torch.float32, device=vol.device)
+    unused, as in the JAX package. graph: None = the residual's CUDA graph
+    on the card, eager on the CPU; False = eager; True on the CPU raises."""
+    from .graph import refine_graphed, resolve_graph
+
+    dev = vol.device
+    pose = torch.as_tensor(pose, dtype=torch.float32, device=dev)
+    depth_obs = torch.as_tensor(depth_obs, dtype=torch.float32, device=dev)
+    if resolve_graph(graph, dev):
+        return refine_graphed("residual", vol, [pose, depth_obs], downsample_by)
+    return _residual(vol, pose, depth_obs, downsample_by=downsample_by)
+
+
+def _residual(vol, pose, depth_obs, downsample_by: int):
+    """depth_residual on device tensors: fixed shapes, no host sync."""
     r, valid = _alignment_residuals(vol, pose, depth_obs, downsample_by)
     delta = 0.01
     hub = torch.where(torch.abs(r) < delta, 0.5 * r * r,
@@ -85,8 +105,7 @@ def _alignment_residuals(vol, pose, depth_obs, downsample_by: int):
 
     cfg = vol.config
     dev = vol.device
-    obs = torch.as_tensor(depth_obs, dtype=torch.float32, device=dev)
-    obs = obs[::downsample_by, ::downsample_by]
+    obs = depth_obs[::downsample_by, ::downsample_by]
     H, W = obs.shape
     uu = torch.arange(W, dtype=torch.float32, device=dev)[None, :] * downsample_by
     vv = torch.arange(H, dtype=torch.float32, device=dev)[:, None] * downsample_by
@@ -104,17 +123,34 @@ def _alignment_residuals(vol, pose, depth_obs, downsample_by: int):
 
 
 def refine_pose_step(vol, pose, depth_obs, downsample_by: int = 1,
-                     max_steps: int = 256, lr=1.0):
+                     max_steps: int = 256, lr=1.0, *, graph: Optional[bool] = None):
     """One damped Gauss-Newton step on the se(3) tangent. Returns
-    (new_pose, loss) as tensors on the volume's device. `lr` acts as the
-    step scale (1.0 = full GN step) and its inverse as Levenberg damping.
+    (new_pose, loss) as tensors on the volume's device. `lr` (a number or a
+    0-dim tensor) acts as the step scale (1.0 = full GN step) and its
+    inverse as Levenberg damping.
 
     The Jacobian is taken by forward mode (``torch.func.jacfwd``, six
     tangents) at the zero twist, where :func:`exp_se3` selects its small
     branch: the rotation columns of J are exactly 0 and every step moves
-    the translation only (the JAX package's semantics)."""
+    the translation only (the JAX package's semantics). graph: None = the
+    step's CUDA graph on the card, eager on the CPU; False = eager; True on
+    the CPU raises."""
+    from .graph import refine_graphed, resolve_graph
+
     dev = vol.device
     pose = torch.as_tensor(pose, dtype=torch.float32, device=dev)
+    depth_obs = torch.as_tensor(depth_obs, dtype=torch.float32, device=dev)
+    # a fill on the device, not a copy of a host number
+    lr = (lr.to(device=dev, dtype=torch.float32) if torch.is_tensor(lr)
+          else torch.full((), float(lr), dtype=torch.float32, device=dev))
+    if resolve_graph(graph, dev):
+        return refine_graphed("step", vol, [pose, depth_obs, lr], downsample_by)
+    return _step(vol, pose, depth_obs, lr, downsample_by=downsample_by)
+
+
+def _step(vol, pose, depth_obs, lr, downsample_by: int):
+    """refine_pose_step on device tensors (lr a 0-dim tensor): fixed
+    shapes, no host sync."""
     J, r0, valid = _jacobian(vol, pose, depth_obs, downsample_by)
     delta = _damped_step(J, r0, lr)
     loss = torch.sum(r0 * r0) / torch.clamp(torch.sum(valid), min=1)
@@ -124,7 +160,6 @@ def refine_pose_step(vol, pose, depth_obs, downsample_by: int = 1,
 def _jacobian(vol, pose, depth_obs, downsample_by: int):
     """(J [N, 6], masked residuals r0 [N], valid [N]) of the alignment
     residual with respect to a left twist of `pose`, at the zero twist."""
-    depth_obs = torch.as_tensor(depth_obs, dtype=torch.float32, device=vol.device)
 
     def res_fn(twist):
         r, valid = _alignment_residuals(vol, _compose(exp_se3(twist), pose),
@@ -141,36 +176,41 @@ def _jacobian(vol, pose, depth_obs, downsample_by: int):
 def _damped_step(J, r0, lr):
     """The damped Gauss-Newton twist: lam = (1 / max(lr, 1e-6) - 1) + 1e-3,
     scaled by trace(JtJ) / 6, and the twist norm capped at 5 cm / 0.05
-    rad."""
+    rad. ``solve_ex`` does not check for errors (that check is a host
+    sync); where the system is singular (no valid point: JtJ = 0) the twist
+    is NaN, as the JAX package's LU solve gives there."""
     dev = J.device
     JtJ = (J[:, :, None] * J[:, None, :]).sum(0)
     Jtr = (J * r0[:, None]).sum(0)
-    lr = torch.as_tensor(lr, dtype=torch.float32, device=dev)
     lam = (1.0 / torch.clamp(lr, min=1e-6) - 1.0) + 1e-3
     eye = torch.eye(6, dtype=torch.float32, device=dev)
-    delta = -torch.linalg.solve(JtJ + lam * torch.trace(JtJ) / 6.0 * eye, Jtr)
+    delta, info = torch.linalg.solve_ex(JtJ + lam * torch.trace(JtJ) / 6.0 * eye, Jtr)
+    delta = torch.where(info == 0, -delta, float("nan"))
     nrm = torch.linalg.vector_norm(delta)
     return torch.where(nrm > 0.05, delta * (0.05 / nrm), delta)
 
 
 def refine_pose(vol, pose_init, depth_obs, iters: int = 20,
                 downsample_by: int = 2, max_steps: int = 256,
-                lr: float = 1.0) -> Tuple[torch.Tensor, list]:
+                lr: float = 1.0, *, graph: Optional[bool] = None) -> Tuple[torch.Tensor, list]:
     """Levenberg-style pose refinement: damped Gauss-Newton steps, accepted
     only when they lower the alignment residual (lr = 1.0 means undamped GN;
     a rejected step quarters the step scale, an accepted one doubles it up
     to lr). Returns (pose, losses): the refined float32 [4, 4] pose on the
     volume's device and the best loss after each iteration (one host sync
-    an iteration)."""
+    an iteration). graph: the step's and the residual's route, as in
+    :func:`refine_pose_step`."""
     dev = vol.device
     pose = torch.as_tensor(pose_init, dtype=torch.float32, device=dev)
     depth_obs = torch.as_tensor(depth_obs, dtype=torch.float32, device=dev)
-    best = float(depth_residual(vol, pose, depth_obs, downsample_by, max_steps))
+    best = float(depth_residual(vol, pose, depth_obs, downsample_by, max_steps, graph=graph))
     losses = [best]
     step = lr
     for _ in range(iters):
-        cand, _ = refine_pose_step(vol, pose, depth_obs, downsample_by, max_steps, step)
-        cand_loss = float(depth_residual(vol, cand, depth_obs, downsample_by, max_steps))
+        cand, _ = refine_pose_step(vol, pose, depth_obs, downsample_by, max_steps, step,
+                                   graph=graph)
+        cand_loss = float(depth_residual(vol, cand, depth_obs, downsample_by, max_steps,
+                                         graph=graph))
         if cand_loss < best:
             pose = cand
             best = cand_loss

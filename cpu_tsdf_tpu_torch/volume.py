@@ -77,7 +77,7 @@ class TSDFVolume:
         return bool(self.nsample.sum() == 0)
 
 
-def make_volume(cfg: TSDFConfig, dtype=torch.float32, device=None) -> TSDFVolume:
+def make_volume(cfg: TSDFConfig, dtype=torch.float32, *, device=None) -> TSDFVolume:
     """Allocate + reset a volume: d=-1, w=0 everywhere
     (TSDFVolumeOctree::reset, tsdf_volume_octree.cpp:200-219)."""
     dev = resolve_device(device)
@@ -109,7 +109,7 @@ def occupied_voxel_indices(vol: TSDFVolume) -> np.ndarray:
     return torch.nonzero(mask).to(torch.int32).cpu().numpy()
 
 
-def voxel_centers_grid(cfg: TSDFConfig, device=None, x_slab=None):
+def voxel_centers_grid(cfg: TSDFConfig, *, device=None, x_slab=None):
     """All voxel centers, [xres, yres, zres] per axis; with x_slab = (x0,
     nx) those of the X-slab [x0, x0 + nx) only, [nx, yres, zres]."""
     from .geometry import voxel_center

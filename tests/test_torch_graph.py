@@ -27,6 +27,7 @@ from cpu_tsdf_tpu import bricks as jb
 from cpu_tsdf_tpu_torch import bricks as tb
 from cpu_tsdf_tpu_torch import graph as tg
 from cpu_tsdf_tpu_torch import render_view
+from cpu_tsdf_tpu_torch.config import TSDFConfig
 from cpu_tsdf_tpu_torch.convert import brick_volume_from_arrays
 from cpu_tsdf_tpu_torch.ops import raycast_kernel as rk
 from cpu_tsdf_tpu_torch.ops.raycast import camera_rays
@@ -219,3 +220,99 @@ def test_state_key_follows_the_volume(small_cfg):
     assert tg.state_key(vol) != key
     other = tb.make_brick_volume(cfg.with_updates(max_weight=7.0), 8, 256, device="cpu")
     assert tg.state_key(other)[1:3] != key[1:3]
+
+
+def _fused(small_cfg, capacity=2048):
+    """A colored (RGB) brick volume of the three POSES, on the CPU."""
+    _, cfg, depth, rgb = _scene(small_cfg, "RGB")
+    vol = tb.make_brick_volume(cfg, 8, capacity, device="cpu")
+    for p in POSES:
+        tb.integrate_bricks(vol, depth, p, rgb, 1024)
+    return vol, depth
+
+
+@pytest.mark.parametrize("chunk_slots", [2048, 64], ids=["one_chunk", "chunks"])
+def test_unchecked_extraction_has_no_host_sync(small_cfg, chunk_slots):
+    """The unchecked extraction with a checked call's live chunks and hints
+    (the chunk programs: brick stats, candidates, the corner halo's and the
+    budgeted emission's plain versions, the scan, the colors) runs no op
+    that syncs with the host, and gives the checked call's triangles. A
+    first call copies the case tables to the device once (that call is
+    not recorded); the checked route syncs once a batch by design."""
+    from cpu_tsdf_tpu_torch.ops import marching_cubes as tmc
+
+    vol, _ = _fused(small_cfg)
+    checked = tmc.extract_soup_bricks(vol, 0.5, True, False, chunk_slots)
+    hint = dict(live_chunks=checked.live_chunks, budget_hint=checked.budget_hint, check=False)
+    with SyncRecorder() as rec:
+        soup = tmc.extract_soup_bricks(vol, 0.5, True, False, chunk_slots, **hint)
+    assert rec.syncs == [], rec.syncs
+    assert int(checked.num_triangles) > 300 and not bool(soup.overflowed)
+    assert torch.equal(soup.vertices[soup.tri_valid], checked.vertices)
+    assert torch.equal(soup.colors[soup.tri_valid], checked.colors)
+    if chunk_slots == 64:
+        assert len(checked.live_chunks) > 1
+
+
+def test_refine_step_and_residual_have_no_host_sync(small_cfg):
+    """A refine_pose_step and a depth_residual on device tensors (the step
+    scale a 0-dim tensor: a Python number is filled on the device) run no
+    op that syncs with the host: no copy of the pose's bottom row, no
+    error check of the solve."""
+    from cpu_tsdf_tpu_torch import refine as tr
+
+    vol, depth = _fused(small_cfg)
+    pose = torch.as_tensor(POSES[1], dtype=torch.float32)
+    depth = torch.as_tensor(depth)
+    lr = torch.full((), 0.5)
+    with SyncRecorder() as rec:
+        new, loss = tr.refine_pose_step(vol, pose, depth, 1, 256, lr)
+        res = tr.depth_residual(vol, new, depth, 1)
+    assert rec.syncs == [], rec.syncs
+    want, want_loss = tr.refine_pose_step(vol, pose.numpy(), depth.numpy(), 1, 256, 0.5)
+    assert torch.equal(new, want) and torch.equal(loss, want_loss) and float(loss) > 0
+    assert 0 < float(res) < float(tr.depth_residual(vol, pose, depth, 1))
+
+
+def test_organize_has_no_host_sync(small_cfg):
+    """organize_cloud on device tensors runs no op that syncs with the host,
+    with and without colors."""
+    from cpu_tsdf_tpu_torch.pipeline import organize_cloud
+
+    cfg = TSDFConfig.from_json(small_cfg.to_json())
+    rng = np.random.default_rng(2)
+    pts = torch.as_tensor(rng.uniform(-0.3, 0.3, (500, 3)).astype(np.float32)) + \
+        torch.tensor([0.0, 0.0, 1.0])
+    rgb = torch.as_tensor(rng.integers(0, 256, (500, 3)).astype(np.float32))
+    with SyncRecorder() as rec:
+        depth, _ = organize_cloud(cfg, pts, device="cpu")
+        depth_c, img = organize_cloud(cfg, pts, rgb, device="cpu")
+    assert rec.syncs == [], rec.syncs
+    assert int((~depth.isnan()).sum()) > 100 and torch.equal(depth.nan_to_num(),
+                                                             depth_c.nan_to_num())
+
+
+def test_graph_switch_of_extraction_refine_organize(small_cfg):
+    """graph=True raises on the CPU in the unchecked extraction, the
+    refine step, the residual, refine_pose and organize_cloud (and with
+    check=True anywhere); graph=None on the CPU is the eager route."""
+    from cpu_tsdf_tpu_torch import refine as tr
+    from cpu_tsdf_tpu_torch.ops import marching_cubes as tmc
+    from cpu_tsdf_tpu_torch.pipeline import organize_cloud
+
+    vol, depth = _fused(small_cfg, 512)
+    pose = POSES[1].astype(np.float32)
+    calls = [lambda g: tmc.extract_soup_bricks(vol, 0.5, check=False, graph=g),
+             lambda g: tmc.extract_soup_bricks(vol, 0.5, graph=g),
+             lambda g: tr.refine_pose_step(vol, pose, depth, graph=g),
+             lambda g: tr.depth_residual(vol, pose, depth, graph=g),
+             lambda g: tr.refine_pose(vol, pose, depth, iters=1, graph=g),
+             lambda g: organize_cloud(vol.config, np.ones((4, 3), np.float32), device="cpu",
+                                      graph=g)]
+    for call in calls:
+        with pytest.raises(ValueError):
+            call(True)
+    a, b = calls[0](None), calls[0](False)
+    assert torch.equal(a.tri_valid, b.tri_valid) and torch.equal(a.vertices[a.tri_valid],
+                                                                 b.vertices[b.tri_valid])
+    assert torch.equal(calls[2](None)[0], calls[2](False)[0])

@@ -197,7 +197,7 @@ def test_mc_kernels_match_plain(cuda_device, case):
     ends = torch.cumsum(ntri, 0, dtype=torch.int32)
     n = int(ends[-1])
     vk, tk = mc.emit_triangles(vol, cand, count, cube, corners, ends - ntri, n)
-    vp, tp = mc._emit_plain(vol, cand, count, cube, corners)
+    vp, tp = mc._emit_plain(vol, cand, count, cube, corners, ends - ntri, n)
     torch.cuda.synchronize()
     assert mc.launches == {"corner_halo": before["corner_halo"] + 1, "emit": before["emit"] + 1}
     assert vk.shape == vp.shape and torch.equal(tk, tp)
@@ -215,9 +215,10 @@ def test_mc_kernels_match_plain(cuda_device, case):
 def test_every_brick_size_runs_the_kernels(cuda_device, B):
     """At every even brick size up to 34, integrate_bricks and
     extract_soup_bricks on the card launch the fusion kernel once a frame
-    and the corner halo and the emission once an extraction (no plain
-    version on the card), and give the plain routes' volume and mesh. The
-    grid is the multiple of B nearest 96 from above."""
+    and, given a first extraction's budget hints, the corner halo and the
+    emission once a live chunk (no plain version on the card), and give the
+    plain routes' volume and mesh. The grid is the multiple of B nearest 96
+    from above."""
     res = -(-96 // B) * B
     cfg = CFG.with_updates(xres=res, yres=res, zres=res, integrate_color=True,
                            color_mode="RGB")
@@ -233,10 +234,15 @@ def test_every_brick_size_runs_the_kernels(cuda_device, B):
     for name in ("brick_map", "coords", "weight", "nsample", "color"):
         assert torch.equal(getattr(k, name), getattr(p, name)), name
     assert float((k.sdf - p.sdf).abs().max()) <= 1e-5
-    sk = mc.extract_soup_bricks(k, 0.5, True)
-    assert mc.launches == {"corner_halo": 1, "emit": 1}
+    first = mc.extract_soup_bricks(k, 0.5, True)
+    mc.launches.update(corner_halo=0, emit=0)
+    sk = mc.extract_soup_bricks(k, 0.5, True, live_chunks=first.live_chunks,
+                                budget_hint=first.budget_hint)
+    n = len(first.live_chunks)
+    assert mc.launches == {"corner_halo": n, "emit": n}
     sp = mc.extract_soup_bricks(k, 0.5, True, use_kernel=False)
-    assert mc.launches == {"corner_halo": 1, "emit": 1}
+    assert mc.launches == {"corner_halo": n, "emit": n}
+    assert torch.equal(sk.vertices, first.vertices)
     assert sk.num_triangles == sp.num_triangles > 500
     assert torch.equal(sk.vertices, sp.vertices) and torch.equal(sk.colors, sp.colors)
 
@@ -257,7 +263,7 @@ def test_mc_kernels_refuse_bricks_past_shared_memory(cuda_device):
         if B == 118:
             sk = mc.extract_soup_bricks(vol, 0.5, use_kernel=True)
             sp = mc.extract_soup_bricks(vol, 0.5, use_kernel=False)
-            assert mc.launches == {"corner_halo": 1, "emit": 1}
+            assert mc.launches["corner_halo"] == mc.launches["emit"] >= 1
             assert sk.num_triangles == sp.num_triangles > 500
             assert torch.equal(sk.vertices, sp.vertices)
             continue
@@ -268,15 +274,18 @@ def test_mc_kernels_refuse_bricks_past_shared_memory(cuda_device):
 
 
 def test_mc_empty_extractions_launch_nothing(cuda_device):
-    """An empty volume has no candidate; a brick list of dead slots has no
-    crossing cube: both give the empty soup, and no emission is launched
-    for zero triangles."""
+    """An empty volume has no candidate: its one chunk program (fixed
+    shapes: the halo over dead slots, an emission whose blocks return at
+    once) gives the empty soup; a brick list of dead slots has no crossing
+    cube, and no emission is launched for a budget of zero triangles."""
     vol = tb.make_brick_volume(CFG.with_updates(integrate_color=True, color_mode="RGB"), 8,
                                64, device=cuda_device)
     before = dict(mc.launches)
     soup = mc.extract_soup_bricks(vol, 0.5, True)
     assert soup.num_triangles == 0 and soup.colors.shape == (0, 3, 3)
-    assert mc.launches == before
+    assert soup.live_chunks == (0,) and not bool(soup.overflowed)
+    assert mc.launches == {k: v + 1 for k, v in before.items()}
+    before = dict(mc.launches)
     dead = torch.tensor([vol.capacity - 1, vol.capacity + 2], dtype=torch.int32,
                         device=cuda_device)
     count, cube, corners, ntri = mc.corner_halo(vol, dead, 0.5)
@@ -759,3 +768,169 @@ def test_frames_and_renders_do_not_sync(cuda_device):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert_states_equal(vols[0], vols[1], "eager and graphed frames")
+
+
+def _valid_rows(soup):
+    """A soup's valid triangles and their colors, in order."""
+    colors = None if soup.colors is None else soup.colors[soup.tri_valid]
+    return soup.vertices[soup.tri_valid], colors
+
+
+def assert_soups_equal(a, b, what):
+    """Equal tri_valid, num_triangles, overflowed, valid vertices and
+    colors (the rows past a chunk's count are unspecified)."""
+    for name in ("tri_valid", "num_triangles", "overflowed"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), (what, name)
+    (av, ac), (bv, bc) = _valid_rows(a), _valid_rows(b)
+    assert torch.equal(av, bv) and torch.equal(ac, bc), what
+
+
+def test_graphed_extraction_equals_eager(cuda_device):
+    """The unchecked extraction with the checked route's hints, in chunks
+    of 64 slots: its CUDA graph (the default on the card) and the eager
+    route give equal tri_valid, num_triangles, overflowed, valid vertices
+    and colors, the valid triangles are the checked route's in order, each
+    call counts one launch of each MC kernel a live chunk, and a result is
+    not overwritten by the next call. An eager call raises nothing under
+    set_sync_debug_mode("error"). A hint of a quarter of each budget sets
+    overflowed; graph=True raises on the plain route and with check=True."""
+    vol = _render_volume(cuda_device, {}, 8)
+    checked = mc.extract_soup_bricks(vol, 0.5, True, False, 64)
+    n = len(checked.live_chunks)
+    assert n >= 2 and int(checked.num_triangles) > 1000 and not bool(checked.overflowed)
+    hint = dict(live_chunks=checked.live_chunks, budget_hint=checked.budget_hint, check=False)
+    mc.launches.update(corner_halo=0, emit=0)
+    graphed = [mc.extract_soup_bricks(vol, 0.5, True, False, 64, **hint) for _ in range(3)]
+    assert mc.launches == {"corner_halo": 3 * n, "emit": 3 * n}
+    eager = mc.extract_soup_bricks(vol, 0.5, True, False, 64, **hint, graph=False)
+    torch.cuda.synchronize()
+    for g in graphed:
+        assert_soups_equal(g, eager, "graphed and eager")
+    assert graphed[0].vertices.data_ptr() != graphed[1].vertices.data_ptr()
+    assert not bool(eager.overflowed) and int(eager.num_triangles) == int(checked.num_triangles)
+    ev, ec = _valid_rows(eager)
+    assert torch.equal(ev, checked.vertices) and torch.equal(ec, checked.colors)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = mc.extract_soup_bricks(vol, 0.5, True, False, 64, **hint, graph=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert_soups_equal(again, eager, "eager under the sync debug mode")
+    small = tuple(tuple(b // 4 for b in h) for h in checked.budget_hint)
+    for graph in (None, False):
+        soup = mc.extract_soup_bricks(vol, 0.5, True, False, 64, live_chunks=checked.live_chunks,
+                                      budget_hint=small, check=False, graph=graph)
+        assert bool(soup.overflowed)
+    with pytest.raises(ValueError):
+        mc.extract_soup_bricks(vol, 0.5, True, False, 64, **hint, use_kernel=False, graph=True)
+    with pytest.raises(ValueError):
+        mc.extract_soup_bricks(vol, 0.5, True, graph=True)
+
+
+def test_extraction_graph_recaptures_after_volume_replaced(cuda_device):
+    """A replaced volume (its state tensors copied) gets an extraction
+    graph of its own: after two more frames fused into the copy, its
+    graphed unchecked extraction equals its eager one and its checked one;
+    the old volume's graph still gives the old mesh."""
+    cfg = CFG.with_updates(integrate_color=True, color_mode="RGB")
+    frames = _graph_frames(cuda_device, cfg, 4)
+    old = tb.make_brick_volume(cfg, 8, 4096, device=cuda_device)
+    for pose, depth, rgb in frames[:2]:
+        tb.integrate_bricks(old, depth, pose, rgb, 2048)
+    soups = {}
+    for name, vol in (("old", old), ("new", None)):
+        if vol is None:
+            vol = dataclasses.replace(old, **{k: getattr(old, k).clone() for k in STATE})
+            for pose, depth, rgb in frames[2:]:
+                tb.integrate_bricks(vol, depth, pose, rgb, 2048)
+        checked = mc.extract_soup_bricks(vol, 0.5, True)
+        hint = dict(live_chunks=checked.live_chunks, budget_hint=checked.budget_hint,
+                    check=False)
+        graphed = mc.extract_soup_bricks(vol, 0.5, True, **hint)
+        assert_soups_equal(graphed, mc.extract_soup_bricks(vol, 0.5, True, **hint, graph=False),
+                           name)
+        assert torch.equal(_valid_rows(graphed)[0], checked.vertices)
+        soups[name] = (vol, hint, graphed)
+    assert int(soups["new"][2].num_triangles) != int(soups["old"][2].num_triangles)
+    vol, hint, graphed = soups["old"]
+    assert_soups_equal(mc.extract_soup_bricks(vol, 0.5, True, **hint), graphed, "old again")
+
+
+def test_emit_budget_bound_matches_plain(cuda_device):
+    """The emission under a tri_budget below the mesh's triangle count
+    stores the triangles below it: vertices and cube references bit-equal
+    to the plain version's truncation and to the unbounded emission's
+    first rows; a budget past the count stores every triangle."""
+    vol, _ = _volumes(cuda_device, "RGB")
+    cand = mc._candidate_slots(vol, 0.5)
+    count, cube, corners, ntri = mc.corner_halo(vol, cand, 0.5)
+    ends = torch.cumsum(ntri, 0, dtype=torch.int32)
+    n, off = int(ends[-1]), ends - ntri
+    full_v, full_t = mc.emit_triangles(vol, cand, count, cube, corners, off, n)
+    for budget in (1, n // 3, n - 1, n + 100):
+        vk, tk = mc.emit_triangles(vol, cand, count, cube, corners, off, budget)
+        vp, tp = mc._emit_plain(vol, cand, count, cube, corners, off, budget)
+        m = min(n, budget)
+        assert vk.shape == vp.shape == (budget, 3, 3)
+        assert torch.equal(vk[:m], vp[:m]) and torch.equal(tk[:m], tp[:m]), budget
+        assert torch.equal(vk[:m], full_v[:m]) and torch.equal(tk[:m], full_t[:m]), budget
+
+
+def test_graphed_refine_step_equals_eager(cuda_device):
+    """refine_pose_step and depth_residual through their CUDA graphs (the
+    default on the card) equal the eager route bit for bit at three step
+    scales (the scale is a static input buffer); refine_pose gives the same
+    losses and pose both ways; an eager step and residual raise nothing
+    under set_sync_debug_mode("error")."""
+    from cpu_tsdf_tpu_torch.refine import depth_residual, exp_se3, refine_pose, refine_pose_step
+
+    vol = _render_volume(cuda_device, {}, 8)
+    pose = orbit_pose(0.3)
+    depth = torch.as_tensor(sphere_depth_world(CFG, pose, radius=0.5), device=cuda_device)
+    bad = torch.as_tensor((exp_se3(torch.tensor([0.024, -0.018, 0.015, 0.0, 0.0, 0.0])).numpy()
+                           @ pose).astype(np.float32), device=cuda_device)
+    for lr in (1.0, 0.25, 1.0):
+        pg, lg = refine_pose_step(vol, bad, depth, 1, 256, lr)
+        pe, le = refine_pose_step(vol, bad, depth, 1, 256, lr, graph=False)
+        assert torch.equal(pg, pe) and torch.equal(lg, le), lr
+        assert torch.equal(depth_residual(vol, pg, depth, 1),
+                           depth_residual(vol, pe, depth, 1, graph=False))
+    assert not torch.equal(refine_pose_step(vol, bad, depth, 1, 256, 0.25)[0], pg)
+    (pose_g, losses_g), (pose_e, losses_e) = (
+        refine_pose(vol, bad, depth, iters=4, downsample_by=1, graph=g) for g in (None, False))
+    assert losses_g == losses_e and torch.equal(pose_g, pose_e) and losses_g[-1] < losses_g[0]
+    lr = torch.full((), 1.0, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        refine_pose_step(vol, bad, depth, 1, 256, lr, graph=False)
+        depth_residual(vol, bad, depth, 1, graph=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_graphed_organize_equals_eager(cuda_device):
+    """organize_cloud through its CUDA graph (the default on the card)
+    equals the eager route bit for bit, with and without color, for two
+    cloud lengths that share a padded graph and one that does not; a result
+    is not overwritten by the next call."""
+    from cpu_tsdf_tpu_torch.pipeline import organize_cloud
+
+    rng = np.random.default_rng(3)
+    outs = []
+    for n in (3000, 2500, 5000):
+        pts = rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
+        pts[:, 2] += 1.2
+        pts[rng.uniform(size=n) < 0.05, 2] = np.nan
+        rgb = rng.integers(0, 256, (n, 3)).astype(np.float32)
+        for colors in (rgb, None):
+            g = organize_cloud(CFG, pts, colors, device=cuda_device)
+            e = organize_cloud(CFG, pts, colors, device=cuda_device, graph=False)
+            assert torch.equal(g[0].isnan(), e[0].isnan())
+            assert torch.equal(g[0].nan_to_num(), e[0].nan_to_num())
+            assert (g[1] is None) == (colors is None)
+            if colors is not None:
+                assert torch.equal(g[1], e[1])
+            outs.append((g[0].clone(), g[0]))
+    assert all(torch.equal(a.nan_to_num(), b.nan_to_num()) for a, b in outs)
+    assert int((~outs[0][0].isnan()).sum()) > 1000

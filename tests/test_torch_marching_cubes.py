@@ -133,7 +133,9 @@ def test_emit_plain_matches_pallas_emission(volumes, moved):
     tv = dataclasses.replace(tv, global_transform=torch.from_numpy(m))
     cand = tmc._candidate_slots(tv, MIN_W)
     count, cube, corners, ntri = tmc.corner_halo(tv, cand, MIN_W)
-    verts, tri_cube = tmc._emit_plain(tv, cand, count, cube, corners)
+    ends = torch.cumsum(ntri, 0, dtype=torch.int32)
+    verts, tri_cube = tmc._emit_plain(tv, cand, count, cube, corners, ends - ntri,
+                                      int(ends[-1]))
     assert verts.shape[0] == int(ntri.sum()) > 100 and tri_cube.shape == verts.shape[:1]
 
     # the same cube list for JAX, padded to whole 512-lane mask rows

@@ -135,3 +135,27 @@ def test_occupied_voxel_indices_match_jax(scene):
     want = jax_occupied(jv)
     assert got.dtype == np.int32 and got.shape[1] == 3 and len(got) > 500
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["dense", "bricks"])
+def test_refine_step_without_valid_point_matches_jax(scene, kind):
+    """An observation with no valid point (all NaN): JtJ and Jtr are 0 and
+    the damped system is singular. JAX's LU solve divides 0 by 0, so its
+    step gives a pose whose top three rows are NaN and a loss of 0; the
+    port's solve_ex reports the singular system and gives the same. The
+    residual is 0 in both, and refine_pose rejects the step and keeps the
+    start pose."""
+    jv, tv = scene[kind]
+    bad = scene["bad"]
+    depth = np.full_like(scene["depth"], np.nan)
+    pj, lj = jr.refine_pose_step(jv, jnp.asarray(bad), jnp.asarray(depth))
+    pt, lt = tr.refine_pose_step(tv, bad, depth)
+    pj = np.asarray(pj)
+    assert np.isnan(pj[:3]).all() and np.isnan(pt.numpy()[:3]).all()
+    np.testing.assert_array_equal(pt.numpy()[3], pj[3])
+    assert float(lt) == float(lj) == 0.0
+    assert float(tr.depth_residual(tv, bad, depth)) == float(
+        jr.depth_residual(jv, jnp.asarray(bad), jnp.asarray(depth))) == 0.0
+    pose, losses = tr.refine_pose(tv, bad, depth, iters=2, downsample_by=1)
+    np.testing.assert_array_equal(pose.numpy(), bad)
+    assert losses == [0.0] * len(losses)

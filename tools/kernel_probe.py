@@ -181,15 +181,18 @@ STAGE_PUT = """        float* dst = st_v + (first + i) * 9;
         for (int q = 0; q < 9; ++q) dst[q] = out[q];
         st_c[first + i] = ref;
 """
-DIRECT_PUT = """        float* dst = verts + (size_t)(base + first + i) * 9;
+DIRECT_PUT = """        if (base + first + i < tri_budget) {
+          float* dst = verts + (size_t)(base + first + i) * 9;
 #pragma unroll
-        for (int q = 0; q < 9; ++q) dst[q] = out[q];
-        tri_cube[base + first + i] = ref;
+          for (int q = 0; q < 9; ++q) dst[q] = out[q];
+          tri_cube[base + first + i] = ref;
+        }
 """
 STAGE_OUT = """    __syncthreads();
+    const int keep = min(total, tri_budget - base);  // stored below the budget
     float* dv = verts + (size_t)base * 9;
-    for (int f = t; f < total * 9; f += NT) dv[f] = st_v[f];
-    for (int f = t; f < total; f += NT) tri_cube[base + f] = st_c[f];
+    for (int f = t; f < keep * 9; f += NT) dv[f] = st_v[f];
+    for (int f = t; f < keep; f += NT) tri_cube[base + f] = st_c[f];
 """
 
 
@@ -293,12 +296,12 @@ def mc_probe(torch, vol, timer, built, parent) -> dict:
     for name in [n for n in built if n.startswith("mc_emit")]:
         fn = ctypes.CDLL(str(built[name][0])).tsdf_mc_emit
         fn.restype = ctypes.c_int
-        fn.argtypes = [p] * 7 + [i, i, ctypes.POINTER(ctypes.c_float)] + [p] * 3
+        fn.argtypes = [p] * 7 + [i, i, i, ctypes.POINTER(ctypes.c_float)] + [p] * 3
 
         def run(fn=fn, name=name):
             _build.check(fn(cand.data_ptr(), vol.coords.data_ptr(), count.data_ptr(),
                             cube.data_ptr(), corners.data_ptr(), off.data_ptr(),
-                            vol.global_transform.data_ptr(), K, vol.brick_size, grid,
+                            vol.global_transform.data_ptr(), K, vol.brick_size, n_tri, grid,
                             verts.data_ptr(), tri_cube.data_ptr(), stream), name)
         verts.fill_(float("nan"))
         run()
