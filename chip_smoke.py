@@ -139,10 +139,35 @@ Phases (any failure raises and exits non-zero before the last line):
      mesh.ply is held against the single pass too. An {"extraction": ...}
      line, with phase 3's extraction breakdown.
 
+ 13. the dense integrate and the checked extraction's graphs: 4 colored
+     orbit frames fused at 512^3 by ops.fusion.integrate (the dense fusion
+     kernel of csrc/fusion.cu, its default on the card), the kernel's
+     launch count zeroed just before and read just after (one a frame),
+     and by its plain version (use_kernel=False), the volumes equal
+     (weight, nsample and color exact, sdf and M within 1e-5), with each
+     route's frame ms; the kernel against integrate_slab_plain on a fifth
+     frame with the same tolerances, CUDA-event times of both, the bound of
+     the frame (the observed voxels read and written once, every voxel
+     projected: fusion's bound) and beside it that of every voxel read and
+     written once (bound_all_ms), busy shares. Then the checked extraction
+     through its graphs (the default on the card: the brick stats' graph
+     replayed a live chunk, one chunk graph a budget triple replayed a
+     chunk) and eagerly on phase 2's volume and on a 4^3 volume of 16 orbit
+     frames:
+     triangles, colors, live chunks and hints bit-equal with the default
+     budgets and with the first call's hints, the first graphed call's ms
+     (its capture), steady ms of each route, busy shares, the graphs' capture
+     ms and pool MB, and a one-shot extract_mesh both ways (the CLIs pass
+     graph=False).
+     Phase 7's 3-frame dense run must launch the dense kernel once a frame,
+     and phase 9's dense sharded and single-device frames once a frame a
+     rank each. A {"dense_checked": ...} line; the dense kernel's record
+     joins the kernels line.
+
 Output: progress on stderr; on stdout the differentiable renders' numbers
 {"render_grad": {...}}, the CLI path's {"cli": {...}}, {"refine": {...}},
 {"parallel": {...}}, {"brick_sizes": {...}}, {"graphs": {...}},
-{"extraction": {...}}, a line of kernel
+{"extraction": {...}}, {"dense_checked": {...}}, a line of kernel
 records {"kernels": [...]} (each with its launches on every path and its
 times at the other brick sizes), the
 nvidia-smi line, and last
@@ -433,8 +458,8 @@ def mc_phase(torch, mc, vol, main_launches, timer):
 
 
 def extraction_breakdown(torch, mc, vol, timer) -> dict:
-    """The checked extraction's steps on vol (chunks of 2048 slots, the
-    budgets of a first call's hints), each a median of synchronized runs:
+    """The eager checked extraction's steps on vol (chunks of 2048 slots,
+    the budgets of a first call's hints), each a median of synchronized runs:
     brick stats + candidates, the corner halo, the rest of the chunk
     programs with the batch's host sync, the whole call with the hints and
     with the default budgets (its retries), the copy to the host."""
@@ -460,8 +485,9 @@ def extraction_breakdown(torch, mc, vol, timer) -> dict:
            "candidates_ms": timer.ms(candidates),
            "halo_ms": timer.ms(lambda: [mc.corner_halo(vol, c, 0.5) for c in cands]),
            "checked_hinted_ms": timer.ms(lambda: mc.extract_soup_bricks(
-               vol, 0.5, True, live_chunks=live, budget_hint=hint)),
-           "checked_default_ms": timer.ms(lambda: mc.extract_soup_bricks(vol, 0.5, True)),
+               vol, 0.5, True, live_chunks=live, budget_hint=hint, graph=False)),
+           "checked_default_ms": timer.ms(lambda: mc.extract_soup_bricks(vol, 0.5, True,
+                                                                         graph=False)),
            "to_host_ms": timer.ms(soup.to_numpy)}
     res["rest_ms"] = res["checked_hinted_ms"] - res["candidates_ms"] - res["halo_ms"]
     log(f"extraction breakdown (checked route, live chunks {live}, hints {hint}): brick "
@@ -779,12 +805,12 @@ def cli_phase(torch, tmp):
 
     def zero():
         torch.cuda.synchronize()
-        fk.launches["fusion"] = rk.launches["raycast"] = 0
+        fk.launches.update(fusion=0, dense_fusion=0)
+        rk.launches["raycast"] = 0
         mc.launches.update(corner_halo=0, emit=0)
 
     def counts():
-        return {"fusion": fk.launches["fusion"], "raycast": rk.launches["raycast"],
-                **mc.launches}
+        return {**fk.launches, "raycast": rk.launches["raycast"], **mc.launches}
 
     def mean_ms(key, rows):
         return statistics.fmean(r[key] for r in rows) * 1e3
@@ -815,7 +841,7 @@ def cli_phase(torch, tmp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = counts()
-    want = {"fusion": CLI_FRAMES, "raycast": CLI_FRAMES // 8}
+    want = {"fusion": CLI_FRAMES, "dense_fusion": 0, "raycast": CLI_FRAMES // 8}
     log(f"integrate --sparse: rc {rc}, {wall:.3f} s wall; launches {got}")
     if rc != 0 or not mc_ran(got, want):
         raise AssertionError(f"integrate --sparse: rc {rc}, launches {got}, want {want}")
@@ -853,7 +879,7 @@ def cli_phase(torch, tmp):
         f"vertices bit-equal {np.array_equal(v1, v2)}; launches {counts()}")
     if rc != 0 or f1.shape != f2.shape or not np.array_equal(v1, v2):
         raise AssertionError("tsdf2mesh does not reproduce the integrate mesh")
-    if not mc_ran(counts(), {"fusion": 0, "raycast": 0}):
+    if not mc_ran(counts(), {"fusion": 0, "dense_fusion": 0, "raycast": 0}):
         raise AssertionError(f"tsdf2mesh did not run the MC kernels: {counts()}")
     # and both are the single pass's mesh (the route before the budgeted chunks)
     ref_v, _ = single_pass(torch, mc, load_any(npz, device=torch.device("cuda")), 0.0)
@@ -872,7 +898,7 @@ def cli_phase(torch, tmp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = counts()
-    want = {"fusion": CLI_DENSE_FRAMES, "raycast": 0}
+    want = {"fusion": CLI_DENSE_FRAMES, "dense_fusion": 0, "raycast": 0}
     npz = os.path.join(out, "volume.npz")
     with np.load(npz) as z:
         overflowed = bool(z["overflowed"])
@@ -895,7 +921,7 @@ def cli_phase(torch, tmp):
     if err >= HALF_CELL_M or n_tri < 1000:
         raise AssertionError("integrate --brick-size 16: the mesh is off the sphere")
     if rc2 != 0 or f1.shape != f2.shape or not np.array_equal(v1, v2) or \
-            not mc_ran(got2, {"fusion": 0, "raycast": 0}):
+            not mc_ran(got2, {"fusion": 0, "dense_fusion": 0, "raycast": 0}):
         raise AssertionError(f"tsdf2mesh of the 16^3 volume: rc {rc2}, launches {got2}")
 
     # a dense run: the MC kernels through from_dense
@@ -911,7 +937,7 @@ def cli_phase(torch, tmp):
     err, n_tri = sphere_error(os.path.join(out, "mesh.ply"), center, CLI_RADIUS)
     with open(metrics_path) as f:
         m = json.load(f)
-    res.update(dense_frames=CLI_DENSE_FRAMES, dense_wall_s=wall,
+    res.update(dense_frames=CLI_DENSE_FRAMES, dense_wall_s=wall, dense_launches=got,
                dense_integrate_ms=mean_ms("integrate_s", m["frames"]),
                dense_extract_ms=m["extract_s"] * 1e3, dense_triangles=n_tri,
                dense_median_radius_err_mm=err * 1e3)
@@ -919,7 +945,9 @@ def cli_phase(torch, tmp):
         f"integrate {res['dense_integrate_ms']:.2f} ms a frame, extraction "
         f"{res['dense_extract_ms']:.2f} ms; {n_tri} triangles, median |r - {CLI_RADIUS}| "
         f"{err * 1e3:.4f} mm; launches {got}")
-    if rc != 0 or not mc_ran(got, {"fusion": 0, "raycast": 0}):
+    # one dense fusion kernel launch a frame
+    if rc != 0 or not mc_ran(got, {"fusion": 0, "dense_fusion": CLI_DENSE_FRAMES,
+                                   "raycast": 0}):
         raise AssertionError(f"dense integrate: rc {rc}, launches {got}")
     if err >= HALF_CELL_M or n_tri < 1000:
         raise AssertionError("dense integrate: the mesh is off the sphere")
@@ -1234,15 +1262,25 @@ def parallel_rank(rank: int, port: int, out_dir: str, spec: dict) -> None:
     sv = shard_volume(make_volume(cfg, device=dev), mesh)
     whole = make_volume(cfg, device=dev)
     res["dense_frame_ms"] = []
+    res["dense_launches"] = {"sharded": 0, "single": 0}
     for i in range(spec["dense_frames"]):
+        before = fk.launches["dense_fusion"]
         sv, ms = timed(lambda: integrate_sharded(sv, depths[i], poses[i], rgb))
+        res["dense_launches"]["sharded"] += fk.launches["dense_fusion"] - before
         res["dense_frame_ms"].append(ms)
+        before = fk.launches["dense_fusion"]
         whole = integrate(whole, depths[i], poses[i], rgb)
+        res["dense_launches"]["single"] += fk.launches["dense_fusion"] - before
     x0, nx = sv.x0, sv.local.sdf.shape[0]
     for name in ("sdf", "weight", "M", "nsample", "color"):
         if not torch.equal(getattr(sv.local, name), getattr(whole, name)[x0:x0 + nx]):
             raise AssertionError(f"rank {rank}: dense slab {name} differs from one device's")
     res["dense_observed"] = int((sv.local.weight > 0).sum())
+    # one dense fusion kernel launch a frame on each route
+    want = {"sharded": spec["dense_frames"] * per_call, "single": spec["dense_frames"] * per_call}
+    if res["dense_launches"] != want:
+        raise AssertionError(f"rank {rank}: dense fusion launches {res['dense_launches']}, "
+                             f"want {want}")
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     dist.barrier()
@@ -1299,6 +1337,8 @@ def parallel_phase(torch, cfg, spec=None):
            "dense_frame_ms": [r["dense_frame_ms"] for r in ranks],
            "triangles": ranks[0]["triangles"], "mesh_ms": [r["mesh_ms"] for r in ranks],
            "launches_per_rank": {"fusion": [r["fusion_launches"] for r in ranks],
+                                 **{f"dense_fusion_{k}": [r["dense_launches"][k] for r in ranks]
+                                    for k in ranks[0]["dense_launches"]},
                                  **{k: [r["mc_launches"][k] for r in ranks]
                                     for k in ranks[0]["mc_launches"]},
                                  **{f"raycast_{k}": [r["raycast_launches"][k] for r in ranks]
@@ -1677,6 +1717,180 @@ def extraction_phase(torch, cfg, vol, pose_h, smi, breakdown) -> dict:
     return res
 
 
+# Phase 13: the dense frames fused through the dense kernel and its plain
+# version (orbit poses 0, 1, 2, 3; the kernel record on pose 4), and the
+# 4^3 volume of the checked extraction (phase 10's capacity and budget,
+# every third orbit pose)
+DENSE_FRAMES = 4
+
+
+def checked_routes(torch, mc, graph, vol, what: str) -> dict:
+    """The checked extraction of vol (chunks of 2048 slots) through its
+    graphs (the brick stats' graph replayed a live chunk, a chunk graph a
+    budget triple replayed a chunk) and eagerly: bit-equal triangles,
+    colors, live chunks and
+    hints, the default budgets and the first call's hints; the first
+    graphed call (capture), steady ms of each route (host clock), busy
+    shares, and extract_mesh's one-shot call both ways (the CLI's)."""
+    graph.clear()
+    torch.cuda.synchronize()
+    mc.launches.update(corner_halo=0, emit=0)
+    t0 = time.perf_counter()
+    first = mc.extract_soup_bricks(vol, 0.5, True)
+    torch.cuda.synchronize()
+    res = {"first_graphed_ms": (time.perf_counter() - t0) * 1e3}
+    res["launches_first_call"] = dict(mc.launches)
+    eager = mc.extract_soup_bricks(vol, 0.5, True, graph=False)
+    hinted = dict(live_chunks=eager.live_chunks, budget_hint=eager.budget_hint)
+    calls = {"default": {}, "hinted": hinted}
+    for name, kw in calls.items():
+        want = mc.extract_soup_bricks(vol, 0.5, True, **kw, graph=False)
+        got = [mc.extract_soup_bricks(vol, 0.5, True, **kw) for _ in range(2)]
+        for g in [first] * (name == "default") + got:
+            same = (torch.equal(g.vertices, want.vertices) and torch.equal(g.colors, want.colors)
+                    and g.live_chunks == want.live_chunks and g.budget_hint == want.budget_hint)
+            if not same:
+                raise AssertionError(f"{what}: the graphed checked extraction ({name}) differs "
+                                     "from the eager one")
+        if got[0].vertices.data_ptr() == got[1].vertices.data_ptr():
+            raise AssertionError(f"{what}: two graphed results share their vertices")
+    res.update(triangles=int(eager.num_triangles), live_chunks=len(eager.live_chunks),
+               budget_hint=[list(h) for h in eager.budget_hint])
+    res["steady_ms"] = {f"{name}_{r}": host_ms(torch, lambda: mc.extract_soup_bricks(
+        vol, 0.5, True, **kw, graph=None if r == "graph" else False))
+        for name, kw in calls.items() for r in ("graph", "eager")}
+    res["busy"] = {r: busy_share(torch, lambda: [mc.extract_soup_bricks(
+        vol, 0.5, True, graph=None if r == "graph" else False) for _ in range(8)])
+        for r in ("graph", "eager")}
+    res["graphs"] = [g for g in graph.stats() if g["kind"].startswith("extract_checked")]
+    # extract_mesh as the CLI calls it, once: a new graph's capture, or eager
+    graph.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mc.extract_mesh(vol, 0.5, color_by_rgb=True)
+    res["extract_mesh_one_shot_ms"] = {"graph": (time.perf_counter() - t0) * 1e3}
+    t0 = time.perf_counter()
+    mc.extract_mesh(vol, 0.5, color_by_rgb=True, graph=False)
+    res["extract_mesh_one_shot_ms"]["eager"] = (time.perf_counter() - t0) * 1e3
+    log(f"checked extraction, {what}: graphed and eager bit-equal (triangles, colors, live "
+        f"chunks, hints; default budgets and hints), {res['triangles']} triangles in "
+        f"{res['live_chunks']} live chunks; first graphed call {res['first_graphed_ms']:.2f} "
+        f"ms (launches {res['launches_first_call']}); steady ms {res['steady_ms']} (host "
+        f"clock); busy share graph {res['busy']['graph']['share']:.4f}, eager "
+        f"{res['busy']['eager']['share']:.4f}; one-shot extract_mesh ms "
+        f"{res['extract_mesh_one_shot_ms']}; graphs {res['graphs']}")
+    return res
+
+
+def dense_phase(torch, cfg, vol, poses, depths, rgb, smi, timer):
+    """Phase 13 (see the module docstring); returns the {"dense_checked":
+    ...} numbers and the dense kernel's record."""
+    import cpu_tsdf_tpu_torch as T
+    from cpu_tsdf_tpu_torch import bricks, graph
+    from cpu_tsdf_tpu_torch.ops import fusion_kernel as fk
+    from cpu_tsdf_tpu_torch.ops import marching_cubes as mc
+    from cpu_tsdf_tpu_torch.ops.fusion import integrate_slab_plain
+
+    dev = poses.device
+    res = {"card": smi, "grid": [cfg.xres, cfg.yres, cfg.zres], "frames": DENSE_FRAMES}
+    # ---- 1. the dense frames through the kernel (integrate's default) -----
+    torch.cuda.empty_cache()
+    vk = T.make_volume(cfg, device=dev)
+    torch.cuda.synchronize()
+    fk.launches["dense_fusion"] = 0
+    ms = {"kernel": [], "plain": []}
+    for i in range(DENSE_FRAMES):
+        t0 = time.perf_counter()
+        vk = T.integrate(vk, depths[i], poses[i], rgb)
+        torch.cuda.synchronize()
+        ms["kernel"].append((time.perf_counter() - t0) * 1e3)
+    launches = fk.launches["dense_fusion"]
+    if launches != DENSE_FRAMES:
+        raise AssertionError(f"dense integrate: {launches} kernel launches in {DENSE_FRAMES} "
+                             "frames")
+    vp = T.make_volume(cfg, device=dev)
+    for i in range(DENSE_FRAMES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vp = T.integrate(vp, depths[i], poses[i], rgb, use_kernel=False)
+        torch.cuda.synchronize()
+        ms["plain"].append((time.perf_counter() - t0) * 1e3)
+    err = dense_equal(torch, vk, vp, f"{DENSE_FRAMES} dense frames")
+    res.update(frame_ms=ms, launches=launches, frames_max_abs_err=err,
+               observed_voxels=int((vk.weight > 0).sum()))
+    del vp
+    log(f"dense integrate at {res['grid']} with RGB color: {DENSE_FRAMES} frames through the "
+        f"kernel equal to the plain route's (weight, nsample, color exact, sdf/M err {err}); "
+        f"frame ms (host clock, synchronized) kernel {ms['kernel']}, plain {ms['plain']}; "
+        f"{res['observed_voxels']} voxels observed; {launches} kernel launches")
+
+    # ---- 2. the kernel against its plain version on one more frame --------
+    i = DENSE_FRAMES
+    k = fk.fuse_dense(vk, depths[i], poses[i], rgb)
+    p = integrate_slab_plain(vk, depths[i], poses[i], rgb)
+    err = dense_equal(torch, k, p, "the dense kernel on one frame")
+    n_vox = cfg.xres * cfg.yres * cfg.zres
+    n_obs = int((k.nsample - vk.nsample).sum())     # each observed voxel's nsample went up by 1
+    del k, p
+    t_k = timer.ms(lambda: fk.fuse_dense(vk, depths[i], poses[i], rgb), spin=True)
+    t_p = timer.ms(lambda: integrate_slab_plain(vk, depths[i], poses[i], rgb), reps=3,
+                   warmup=1, spin=True)
+    H, W, nc = cfg.image_height, cfg.image_width, vk.color.shape[-1]
+    # the bound, as fusion's: the observed voxels' state and color read and
+    # written once (whether a voxel is observed follows from its projection
+    # and the depth image alone: an in-place fusion, as JAX's donated one,
+    # touches no other voxel), every voxel projected and tested; beside it
+    # every voxel read and written, what the kernel's fresh outputs need
+    obs_bytes = fk.voxel_bytes(n_obs, H, W, nc)
+    all_bytes = fk.voxel_bytes(n_vox, H, W, nc)
+    rec = record("dense_fusion", "cpu_tsdf_tpu_torch/csrc/fusion.cu",
+                 "cpu_tsdf_tpu/ops/fusion.py:141", launches, err, t_k, t_p, obs_bytes,
+                 fk.ops_needed(cfg, n_vox, n_obs))
+    rec["bound_all_ms"] = all_bytes / HBM_BYTES_PER_S * 1e3
+    rec["replaces_kind"] = "jax.jit program fused by XLA (not a Pallas kernel)"
+    res.update(kernel_ms=t_k, plain_ms=t_p, bound_ms=rec["bound_ms"],
+               bound_by=rec["bound_by"], bytes_observed=obs_bytes,
+               bound_all_ms=rec["bound_all_ms"], bytes_all=all_bytes,
+               observed_in_frame=n_obs)
+    res["busy"] = {r: busy_share(torch, lambda: [T.integrate(
+        vk, depths[j], poses[j], rgb, use_kernel=r == "kernel") for j in range(3)])
+        for r in ("kernel", "plain")}
+    log(f"dense kernel vs plain on frame {i}: equal (sdf/M err {err}); kernel {t_k:.4f} ms, "
+        f"plain {t_p:.4f} ms (device, CUDA events); bound {rec['bound_ms']:.5f} ms "
+        f"({obs_bytes} bytes observed, {rec['bound_by']}); every voxel read and written "
+        f"{rec['bound_all_ms']:.4f} ms ({all_bytes} bytes); {n_obs} of {n_vox} voxels "
+        f"observed; busy share "
+        f"kernel {res['busy']['kernel']['share']:.4f}, plain "
+        f"{res['busy']['plain']['share']:.4f}")
+    del vk
+    torch.cuda.empty_cache()
+
+    # ---- 3. the checked extraction, graphed and eager -----------------------
+    res["checked_8"] = checked_routes(torch, mc, graph, vol, "8^3 bricks (phase 2's volume)")
+    capacity, budget = BRICK_SIZES[4]
+    frames = list(range(0, len(poses), len(poses) // BRICK_FRAMES))[:BRICK_FRAMES]
+    v4 = T.make_brick_volume(cfg, 4, capacity, device=dev)
+    for j in frames:
+        bricks.integrate_bricks(v4, depths[j], poses[j], rgb, budget)
+    if bool(v4.overflowed):
+        raise AssertionError("the 4^3 volume overflowed")
+    res["checked_4"] = checked_routes(torch, mc, graph, v4, "4^3 bricks")
+    return res, rec
+
+
+def dense_equal(torch, a, b, what: str) -> float:
+    """Dense volumes: weight (NaN where NaN), nsample and color exact, sdf
+    and M within 1e-5. Returns the largest sdf/M difference."""
+    if not (torch.equal(a.nsample, b.nsample) and torch.equal(a.color, b.color)
+            and torch.equal(a.weight.isnan(), b.weight.isnan())
+            and torch.equal(a.weight.nan_to_num(), b.weight.nan_to_num())):
+        raise AssertionError(f"{what}: weight, nsample or color differs")
+    err = max(float((a.sdf - b.sdf).abs().max()), float((a.M - b.M).abs().max()))
+    if not err <= 1e-5:
+        raise AssertionError(f"{what}: sdf/M differ by {err}")
+    return err
+
+
 def main() -> int:
     import torch
 
@@ -1907,6 +2121,15 @@ def main() -> int:
                                            "bound_ms", "bound_by", "bound_rows_ms")
                 if key in at_b}
 
+    # ---- phase 13: the dense kernel and the checked extraction's graphs ------
+    dense, dense_rec = dense_phase(torch, cfg, vol, poses, depths, rgb, smi, timer)
+    dense_rec["launches_on_paths"] = {
+        "dense_phase_13": dense_rec["launches"],
+        "cli_dense": cli_numbers["dense_launches"]["dense_fusion"],
+        **{f"parallel_per_rank_{k}": v for k, v in par["launches_per_rank"].items()
+           if k.startswith("dense_fusion_")}}
+    kernels.append(dense_rec)
+
     print(json.dumps({"render_grad": render_grad}))
     print(json.dumps({"cli": cli_numbers}))
     print(json.dumps({"refine": refine_numbers}))
@@ -1915,6 +2138,7 @@ def main() -> int:
                                       for B, res in sizes.items()}}))
     print(json.dumps({"graphs": graphs}))
     print(json.dumps({"extraction": extraction}))
+    print(json.dumps({"dense_checked": dense}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -327,8 +327,9 @@ def _integrate_impl(argv=None) -> int:
         return 0
 
     t1 = time.time()
+    # one extraction a run: eager, since a graph's capture would never replay
     verts, faces, cols = extract_mesh(vol, min_weight=args.min_weight,
-                                      color_by_rgb=args.color)
+                                      color_by_rgb=args.color, graph=False)
     extract_s = time.time() - t1        # ends in the copy of the mesh to the host
     if args.flatten:
         verts, faces, cols = flatten_vertices(verts, faces, cols)
@@ -372,7 +373,7 @@ def tsdf2mesh_main(argv=None) -> int:
     print(f"Converting {args.volume_file} -> {args.mesh_file}")
     vol = load_any(args.volume_file, device=dev)
     print("Loaded! Running marching cubes")
-    verts, faces, cols = extract_mesh(vol, min_weight=args.min_weight)
+    verts, faces, cols = extract_mesh(vol, min_weight=args.min_weight, graph=False)
     ply_io.save_ply(args.mesh_file, verts, faces, colors=cols, binary=True)
     return 0
 

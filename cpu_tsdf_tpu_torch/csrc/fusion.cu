@@ -368,3 +368,169 @@ extern "C" int tsdf_fuse_bricks(const FusionParams* params, const void* rows,
   }
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// Dense fusion kernel: one depth frame (and its color) fused into the dense
+// [nx, yres, zres] X-slab starting at plane x0, into fresh output tensors.
+//
+// Replaces the JAX package's jitted dense integrate (cpu_tsdf_tpu/ops/
+// fusion.py:141-193, jax.jit with the volume donated), which XLA fuses into
+// a few loops over the grid; it is not a Pallas kernel. The contract is the
+// plain version, cpu_tsdf_tpu_torch/ops/fusion.py::integrate_slab_plain.
+// The per-voxel expression is the brick kernel's: project() and
+// fuse_voxel<CM>() above (with update_color<CM>), so both fusions compile
+// one expression, in the same operation order, under --fmad=false.
+//
+// Launch: thread t takes the V consecutive voxels of the slab from linear
+// index t * V (voxel order (x*yres + y)*zres + z, the layout of the dense
+// tensors). V = 4 when zres is a multiple of 4 and every state pointer is
+// 16-byte aligned: the four voxels then share x and y, and each state field
+// is one 16-byte load and store (color nc of them). Otherwise V = 1.
+// Offsets are 64-bit: a 1024 x 1024 x 704 grid fits on an 80 GB card with
+// color, and its color tensor has more than 2^31 entries.
+//
+// Bound: device memory. The outputs are fresh (the port's dense integrate
+// returns a new volume, and its autograd recomputes from the old one), so
+// every voxel's state and color is read once and written once: 2 x 28 B a
+// voxel with RGB color, 7.52 GB at 512^3, 2.24 ms at 3.35 TB/s. The depth
+// and rgb images are gathered and stay in the 50 MB L2. Nothing else is
+// written: the ~50 full-volume passes of the plain version (and its int64
+// gather indices) collapse into this one.
+
+constexpr int kDenseThreads = 256;
+
+template <int V, int CM>
+__global__ void __launch_bounds__(kDenseThreads)
+fuse_dense_kernel(FusionParams p, int x0, long long n_vox,
+                  const float* __restrict__ pose,  // pose_inv rows 0..2, 12 floats
+                  const float* __restrict__ depth, const float* __restrict__ rgb,
+                  const float* __restrict__ sdf, const float* __restrict__ weight,
+                  const float* __restrict__ M, const int* __restrict__ nsample,
+                  const float* __restrict__ color, float* __restrict__ sdf_out,
+                  float* __restrict__ weight_out, float* __restrict__ M_out,
+                  int* __restrict__ nsample_out, float* __restrict__ color_out) {
+  constexpr int NC = Color<CM>::nc;
+  constexpr int NCV = NC > 0 ? NC * V : 1;
+  __shared__ float m[12];
+  const int t = threadIdx.x;
+  if (t < 12) m[t] = pose[t];
+  const long long i0 = ((long long)blockIdx.x * kDenseThreads + t) * V;
+  const bool live = i0 < n_vox;
+
+  // the state first: it does not depend on the projection
+  float d[V], w[V], Mv[V], c[NCV];
+  int n[V];
+  if (live) {
+    if constexpr (V == 4) {
+      const float4 d4 = *reinterpret_cast<const float4*>(sdf + i0);
+      const float4 w4 = *reinterpret_cast<const float4*>(weight + i0);
+      const float4 m4 = *reinterpret_cast<const float4*>(M + i0);
+      const int4 n4 = *reinterpret_cast<const int4*>(nsample + i0);
+      d[0] = d4.x; d[1] = d4.y; d[2] = d4.z; d[3] = d4.w;
+      w[0] = w4.x; w[1] = w4.y; w[2] = w4.z; w[3] = w4.w;
+      Mv[0] = m4.x; Mv[1] = m4.y; Mv[2] = m4.z; Mv[3] = m4.w;
+      n[0] = n4.x; n[1] = n4.y; n[2] = n4.z; n[3] = n4.w;
+#pragma unroll
+      for (int k = 0; k < NC; ++k) {
+        const float4 c4 = reinterpret_cast<const float4*>(color + i0 * NC)[k];
+        c[4 * k] = c4.x; c[4 * k + 1] = c4.y; c[4 * k + 2] = c4.z; c[4 * k + 3] = c4.w;
+      }
+    } else {
+      d[0] = sdf[i0];
+      w[0] = weight[i0];
+      Mv[0] = M[i0];
+      n[0] = nsample[i0];
+#pragma unroll
+      for (int k = 0; k < NC; ++k) c[k] = color[i0 * NC + k];
+    }
+  }
+  __syncthreads();  // the pose
+  if (!live) return;
+
+  // the first voxel's (x, y, z); the others follow in z (V = 4 only when
+  // zres is a multiple of 4, so they never leave the z run)
+  const long long row = i0 / p.zres;
+  const int gz = (int)(i0 - row * p.zres);
+  const int lx = (int)(row / p.yres);
+  const int gy = (int)(row - (long long)lx * p.yres);
+  Projection o[V];
+  float z[V], r[V], g[V], b[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) o[k] = project(p, m, x0 + lx, gy, gz + k);
+  // the depth and rgb pixels of all V voxels, loaded together
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    z[k] = o[k].valid ? depth[o[k].pix] : 0.0f;
+    r[k] = g[k] = b[k] = 0.0f;
+    if (NC > 0 && o[k].valid) {
+      const float* px = rgb + 3 * o[k].pix;
+      r[k] = px[0];
+      g[k] = px[1];
+      b[k] = px[2];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < V; ++k)
+    fuse_voxel<CM>(p, o[k], z[k], r[k], g[k], b[k], d[k], w[k], Mv[k], n[k],
+                   c + (NC > 0 ? k * NC : 0));
+
+  // every voxel is written: the outputs are fresh tensors
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(sdf_out + i0) = make_float4(d[0], d[1], d[2], d[3]);
+    *reinterpret_cast<float4*>(weight_out + i0) = make_float4(w[0], w[1], w[2], w[3]);
+    *reinterpret_cast<float4*>(M_out + i0) = make_float4(Mv[0], Mv[1], Mv[2], Mv[3]);
+    *reinterpret_cast<int4*>(nsample_out + i0) = make_int4(n[0], n[1], n[2], n[3]);
+#pragma unroll
+    for (int k = 0; k < NC; ++k)
+      reinterpret_cast<float4*>(color_out + i0 * NC)[k] =
+          make_float4(c[4 * k], c[4 * k + 1], c[4 * k + 2], c[4 * k + 3]);
+  } else {
+    sdf_out[i0] = d[0];
+    weight_out[i0] = w[0];
+    M_out[i0] = Mv[0];
+    nsample_out[i0] = n[0];
+#pragma unroll
+    for (int k = 0; k < NC; ++k) color_out[i0 * NC + k] = c[k];
+  }
+}
+
+static bool aligned16(const void* ptr) { return ptr == nullptr || (uintptr_t)ptr % 16 == 0; }
+
+// The slab holds planes [x0, x0 + nx) of the params' xres x yres x zres
+// grid. rgb, color and color_out are null when color_mode is kNone.
+extern "C" int tsdf_fuse_dense(const FusionParams* params, int x0, int nx, const void* pose,
+                               const void* depth, const void* rgb, const void* sdf,
+                               const void* weight, const void* M, const void* nsample,
+                               const void* color, void* sdf_out, void* weight_out,
+                               void* M_out, void* nsample_out, void* color_out,
+                               void* stream) {
+  const FusionParams& p = *params;
+  const long long n_vox = (long long)nx * p.yres * p.zres;
+  if (n_vox > 0) {
+    cudaStream_t s = (cudaStream_t)stream;
+    const bool vec = p.zres % 4 == 0 && aligned16(sdf) && aligned16(weight) && aligned16(M) &&
+                     aligned16(nsample) && aligned16(color) && aligned16(sdf_out) &&
+                     aligned16(weight_out) && aligned16(M_out) && aligned16(nsample_out) &&
+                     aligned16(color_out);
+    const long long per_block = (long long)kDenseThreads * (vec ? 4 : 1);
+    const unsigned n_blocks = (unsigned)((n_vox + per_block - 1) / per_block);
+#define TSDF_DENSE(V, CM)                                                              \
+  fuse_dense_kernel<V, CM><<<n_blocks, kDenseThreads, 0, s>>>(                          \
+      p, x0, n_vox, (const float*)pose, (const float*)depth, (const float*)rgb,         \
+      (const float*)sdf, (const float*)weight, (const float*)M, (const int*)nsample,    \
+      (const float*)color, (float*)sdf_out, (float*)weight_out, (float*)M_out,          \
+      (int*)nsample_out, (float*)color_out)
+#define TSDF_DENSE_VEC(CM)      \
+  if (vec) TSDF_DENSE(4, CM);   \
+  else TSDF_DENSE(1, CM)
+    switch (p.color_mode) {
+      case kRGB: TSDF_DENSE_VEC(kRGB); break;
+      case kRGBNormalized: TSDF_DENSE_VEC(kRGBNormalized); break;
+      case kLAB: TSDF_DENSE_VEC(kLAB); break;
+      default: TSDF_DENSE_VEC(kNone); break;
+    }
+#undef TSDF_DENSE_VEC
+#undef TSDF_DENSE
+  }
+  return (int)cudaGetLastError();
+}

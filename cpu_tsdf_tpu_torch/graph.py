@@ -5,13 +5,18 @@ The JAX package runs a frame as one jitted program with the volume donated
 (``cpu_tsdf_tpu/bricks.py::_integrate_bricks_jit``), a trajectory as one
 ``lax.scan`` program (``_integrate_bricks_seq_jit``), a render as one
 jitted program (``cpu_tsdf_tpu/ops/raycast.py::_render_view_jit``), an
-unchecked extraction as one jitted program a chunk
-(``cpu_tsdf_tpu/ops/marching_cubes.py::_extract_chunk_compact``), the
+extraction as one jitted program a chunk, its start traced
+(``cpu_tsdf_tpu/ops/marching_cubes.py::_extract_chunk_compact``; the brick
+stats as a ``lax.scan``, ``_brick_stats_scan``), the
 refine step and residual jitted (``cpu_tsdf_tpu/refine.py::
 refine_pose_step``, ``_residual_jit``) and the reprojection of a cloud
 jitted (``cpu_tsdf_tpu/pipeline.py::_organize_jit``). Here a frame
 (``bricks.fuse_frame``), a render (``ops.raycast._render``), an unchecked
-extraction (``ops.marching_cubes._extract_unchecked``), a refine step and
+extraction (``ops.marching_cubes._extract_unchecked``), the checked
+extraction's brick stats and chunk program of one chunk
+(``_chunk_stats``, ``_extract_chunk``, the chunk's start on the device;
+the caller reads a batch of chunks' counts in one host sync, as the JAX
+package does), a refine step and
 residual (``refine._step``, ``refine._residual``) and a reprojection
 (``pipeline._organize``) are programs of fixed shapes with no host sync
 (``tests/test_torch_graph.py`` records their ops), so on the card each is
@@ -32,8 +37,15 @@ hand-written kernels and their glue run with no per-op host dispatch.
   every state tensor of the volume, the config, the brick size, the input
   shapes and the program's settings (a frame's budget, color, kernel route
   and split generator; an extraction's chunks and budgets); a changed key
-  (a new or reloaded volume, other settings) captures anew.
-  At most :data:`MAX_GRAPHS` are kept, the least recently used dropped.
+  (a new or reloaded volume, other settings) captures anew. The checked
+  extraction's graphs of a volume and settings share one key: the brick
+  stats' graph and one chunk graph a budget triple, each replayed once a
+  chunk, the chunk's start filled into a static device buffer (chunks of
+  equal budgets share a graph).
+  At most :data:`MAX_GRAPHS` keys are kept, the least recently used
+  dropped; a checked extraction's key keeps at most
+  :data:`MAX_CHECKED_GRAPHS` graphs, the least recently used chunk graph
+  dropped (its brick stats' graph stays).
 * **Random draws.** With ``num_random_splits > 1`` the jitter draws from a
   generator registered with the graph, so each replay draws where the
   generator stands, as an eager draw would. Without a split generator a
@@ -46,9 +58,9 @@ hand-written kernels and their glue run with no per-op host dispatch.
   itself launches nothing.
 
 A capture or replay that fails raises: nothing falls back to the eager
-route. Out of the graphs: the checked extraction (``extract_mesh``: one
-host sync a batch of chunks, by design), the sharded paths (gloo
-collectives through the host) and the render under autograd.
+route. Out of the graphs: the sharded paths (gloo collectives through the
+host), the render under autograd and the dense integrate (one kernel
+launch, ``ops.fusion_kernel.fuse_dense``).
 """
 
 from __future__ import annotations
@@ -60,8 +72,13 @@ from typing import Optional
 
 import torch
 
-# Graphs kept at once (each holds a private memory pool).
+# Keys kept at once (each graph holds a private memory pool, and keeps the
+# tensors of its volume alive).
 MAX_GRAPHS = 8
+# Graphs a checked extraction's key keeps: its brick stats' and one a
+# budget triple of its chunk programs (the hints of a 4^3 volume give more
+# than ten triples, retries from small budgets more than fifteen).
+MAX_CHECKED_GRAPHS = 32
 
 _cache: "collections.OrderedDict[tuple, object]" = collections.OrderedDict()
 _streams = {}
@@ -165,10 +182,11 @@ def clear() -> None:
 def stats() -> list:
     """Each kept graph's kind, capture ms, pool MB and launches a replay,
     least recently used first."""
-    return [dict(kind=key[0], capture_ms=e.captured.capture_ms,
-                 pool_mb=e.captured.pool_bytes / 2 ** 20,
-                 launches={k: v for n in e.captured.launches for k, v in n.items() if v})
-            for key, e in _cache.items()]
+    return [dict(kind=kind, capture_ms=c.capture_ms, pool_mb=c.pool_bytes / 2 ** 20,
+                 launches={k: v for n in c.launches for k, v in n.items() if v})
+            for key, e in _cache.items()
+            for kind, c in (e.captures() if isinstance(e, _CheckedGraphs)
+                            else [(key[0], e.captured)])]
 
 
 class _FrameGraph:
@@ -284,6 +302,91 @@ def extract_graphed(bv, min_weight: float, color_by_rgb: bool, color_by_confiden
     return dataclasses.replace(soup, **{
         f.name: t.clone() for f in dataclasses.fields(soup)
         if isinstance(t := getattr(soup, f.name), torch.Tensor)})
+
+
+class _CheckedGraphs:
+    """The checked extraction's graphs on one volume and settings, in the
+    JAX package's shape (``_brick_stats_scan``'s body and
+    ``_extract_chunk_compact``, with the chunk's start traced): the brick
+    stats of a chunk, replayed a live chunk into static (min, max)
+    buffers, and the chunk program, one graph a (cube, brick, tri) budget
+    triple, replayed a chunk. Each reads the chunk's start from a static
+    device buffer that a call fills before the replay (a fill kernel: no
+    copy from the host). ``graphs`` runs from the least to the most
+    recently used, at most :data:`MAX_CHECKED_GRAPHS` of them; a capture
+    past that drops the least recently used chunk graph."""
+
+    def __init__(self, bv, settings, chunk_slots: int):
+        dev = bv.device
+        self.bv, self.settings, self.chunk_slots = bv, settings, chunk_slots
+        self.dmin = torch.empty((bv.capacity + 1,), dtype=torch.float32, device=dev)
+        self.dmax = torch.empty_like(self.dmin)
+        self.slot0 = torch.zeros((), dtype=torch.int32, device=dev)
+        self.graphs: "collections.OrderedDict[object, _Captured]" = collections.OrderedDict()
+
+    def captures(self):
+        return [("extract_checked_" + ("stats" if k == "stats" else "chunk"), c)
+                for k, c in self.graphs.items()]
+
+    def _run(self, key, program):
+        """program through the graph of key at the current slot0: the first
+        run warms up (its result returned) and captures; later runs replay
+        (the graph's outputs returned, which its next replay overwrites).
+        Returns (result, replayed)."""
+        c = self.graphs.get(key)
+        if c is None:
+            c = self.graphs[key] = _Captured(self.bv.device, program)
+            while len(self.graphs) > MAX_CHECKED_GRAPHS:
+                del self.graphs[next(k for k in self.graphs if k != "stats")]
+            out, c.warm = c.warm, None
+            return out, False
+        self.graphs.move_to_end(key)
+        c.replay()
+        return c.out, True
+
+    def stats(self, live_chunks: tuple) -> None:
+        from .ops.marching_cubes import _chunk_stats
+
+        self.dmin.fill_(float("inf"))
+        self.dmax.fill_(float("-inf"))
+        for s0 in live_chunks:
+            self.slot0.fill_(s0)
+            self._run("stats", lambda: _chunk_stats(self.bv, self.dmin, self.dmax, self.slot0,
+                                                    self.chunk_slots, self.settings[0]))
+
+    def chunk(self, s0: int, cube_budget: int, brick_budget: int, tri_budget: int):
+        """The chunk program from slot s0 at these budgets: (vertices,
+        colors or None, tri_valid, out) in fresh tensors."""
+        from .ops.marching_cubes import _extract_chunk
+
+        min_weight, color_by_rgb, color_by_confidence, kernel = self.settings
+        self.slot0.fill_(s0)
+        out, replayed = self._run(("chunk", cube_budget, brick_budget, tri_budget),
+                                  lambda: _extract_chunk(
+                                      self.bv, (self.dmin, self.dmax), self.slot0,
+                                      self.chunk_slots, cube_budget, brick_budget, tri_budget,
+                                      min_weight, color_by_rgb, color_by_confidence, kernel))
+        if not replayed:
+            return out
+        return tuple(None if t is None else t.clone() for t in out)
+
+
+def checked_extraction(bv, min_weight: float, color_by_rgb: bool, color_by_confidence: bool,
+                       kernel: bool, chunk_slots: int, live_chunks: tuple):
+    """The checked extraction's chunk programs on the card
+    (``ops.marching_cubes._extract`` with check=True): the brick stats of
+    the live chunks through their graph, then a function (s0, cube, brick,
+    tri budget) -> the chunk program's (vertices, colors or None,
+    tri_valid, out) in fresh tensors, through the graph of its budgets.
+    The graphs of a volume and settings are kept together under one key."""
+    settings = (float(min_weight), color_by_rgb, color_by_confidence, kernel)
+    key = ("extract_checked", bv.device, state_key(bv), chunk_slots) + settings
+    entry = _lookup(key)
+    if entry is None:
+        entry = _CheckedGraphs(bv, settings, chunk_slots)
+        _keep(key, entry)
+    entry.stats(live_chunks)
+    return entry.chunk
 
 
 def refine_graphed(kind: str, vol, inputs, downsample_by: int):

@@ -15,7 +15,10 @@ Per finest voxel:
   * Welford variance accumulator M, nsample  octree.cpp:160-161
 
 Dense :func:`integrate` is functional (it returns new tensors) so that
-torch autograd flows through it with respect to depth and pose.
+torch autograd flows through it with respect to depth and pose. On the
+card it runs the dense fusion kernel (``csrc/fusion.cu``, the counterpart
+of the JAX package's jitted, XLA-fused ``integrate``); on the CPU its plain
+version :func:`integrate_slab_plain`.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import torch
 from ..config import TSDFConfig
 from ..geometry import (div_const, frustum_contains, reproject_point, rigid_inverse,
                         transform_points)
-from ..volume import TSDFVolume, voxel_centers_grid
+from ..volume import TSDFVolume, resolve_use_kernel, voxel_centers_grid
 from . import color as color_ops
 
 
@@ -113,7 +116,8 @@ def variance_weight(cfg: TSDFConfig, w_obs, d_obs, d0, w0, M0, n0):
     return w_obs * torch.where(n0 > 5, scale, torch.ones_like(scale))
 
 
-def integrate(vol: TSDFVolume, depth, pose, rgb: Optional[torch.Tensor] = None) -> TSDFVolume:
+def integrate(vol: TSDFVolume, depth, pose, rgb: Optional[torch.Tensor] = None, *,
+              use_kernel: Optional[bool] = None) -> TSDFVolume:
     """Fuse one registered depth frame into the dense volume.
 
     Args:
@@ -121,16 +125,98 @@ def integrate(vol: TSDFVolume, depth, pose, rgb: Optional[torch.Tensor] = None) 
       depth: [H, W] float32 depth in meters, NaN where missing.
       pose: [4, 4] camera-to-volume transform.
       rgb: optional [H, W, 3] float32 (0..255) color image.
+      use_kernel: None = the dense fusion kernel (csrc/fusion.cu) on the
+        card and the plain version on the CPU; False = the plain version
+        anywhere; True on the CPU raises.
     """
-    return integrate_slab(vol, depth, pose, rgb)
+    return integrate_slab(vol, depth, pose, rgb, use_kernel=use_kernel)
 
 
 def integrate_slab(vol: TSDFVolume, depth, pose, rgb: Optional[torch.Tensor] = None,
-                   x0: int = 0) -> TSDFVolume:
+                   x0: int = 0, *, use_kernel: Optional[bool] = None) -> TSDFVolume:
     """:func:`integrate` on the X-slab [x0, x0 + n) of the grid, where vol's
     tensors hold that slab's n x-planes (the slab-sharded volume of
     ``parallel.sharding``); voxel centres and the coarse frustum cells are
-    those of the slab's global indices."""
+    those of the slab's global indices.
+
+    Differentiable with respect to depth, pose, rgb and the volume's float
+    tensors through :class:`_IntegrateSlab`: the forward runs the kernel
+    (``fusion_kernel.fuse_dense``) or :func:`integrate_slab_plain`, the
+    backward recomputes the plain version under autograd. use_kernel: as
+    in :func:`integrate`."""
+    dev = vol.device
+    kernel = resolve_use_kernel(use_kernel, dev)
+    depth = torch.as_tensor(depth, dtype=torch.float32, device=dev)
+    pose = torch.as_tensor(pose, dtype=torch.float32, device=dev)
+    with_color = vol.color is not None and rgb is not None
+    if with_color:
+        rgb = torch.as_tensor(rgb, dtype=torch.float32, device=dev)
+    sdf, weight, M, nsample, color = _IntegrateSlab.apply(
+        depth, pose, rgb if with_color else None, vol.sdf, vol.weight, vol.M, vol.nsample,
+        vol.color if with_color else None, vol.config, vol.global_transform, x0, kernel)
+    return TSDFVolume(sdf=sdf, weight=weight, M=M, nsample=nsample,
+                      color=color if with_color else vol.color,
+                      global_transform=vol.global_transform, config=vol.config)
+
+
+class _IntegrateSlab(torch.autograd.Function):
+    """The dense fusion of one frame, (sdf, weight, M, nsample, color or
+    None) of the slab, differentiable with respect to depth, pose, rgb and
+    the volume's float tensors.
+
+    Forward: the dense fusion kernel (``fusion_kernel.fuse_dense``, which
+    runs :func:`integrate_slab_plain` on CPU tensors) or the plain version,
+    without autograd. Backward: :func:`integrate_slab_plain` recomputed from
+    the saved inputs under autograd, as ``raycast_kernel._MarchRays``
+    recomputes the refinement: the plain version is the function the
+    kernel computes, so its gradient is the kernel's."""
+
+    @staticmethod
+    def forward(ctx, depth, pose, rgb, sdf, weight, M, nsample, color, cfg, global_transform,
+                x0, kernel):
+        from .fusion_kernel import fuse_dense
+
+        vol = TSDFVolume(sdf=sdf, weight=weight, M=M, nsample=nsample, color=color,
+                         global_transform=global_transform, config=cfg)
+        out = (fuse_dense if kernel else integrate_slab_plain)(vol, depth, pose, rgb, x0)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(depth, pose, rgb, sdf, weight, M, nsample, color)
+        ctx.cfg, ctx.global_transform, ctx.x0 = cfg, global_transform, x0
+        ctx.mark_non_differentiable(out.nsample)
+        return out.sdf, out.weight, out.M, out.nsample, out.color
+
+    @staticmethod
+    def backward(ctx, *grads):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:8]
+        none = (None,) * 12
+        if not any(need):
+            return none
+        with torch.enable_grad():
+            inputs = [None if x is None else x.detach().requires_grad_(n)
+                      for x, n in zip(saved, need)]
+            depth, pose, rgb, sdf, weight, M, nsample, color = inputs
+            out = integrate_slab_plain(
+                TSDFVolume(sdf=sdf, weight=weight, M=M, nsample=nsample, color=color,
+                           global_transform=ctx.global_transform, config=ctx.cfg),
+                depth, pose, rgb, ctx.x0)
+            pairs = [(o, g) for o, g in zip((out.sdf, out.weight, out.M, out.nsample,
+                                             out.color), grads)
+                     if g is not None and o is not None and o.requires_grad]
+            if not pairs:
+                return none
+            wanted = [x for x, n in zip(inputs, need) if n]
+            got = iter(torch.autograd.grad([o for o, _ in pairs], wanted,
+                                           [g for _, g in pairs], allow_unused=True))
+        return tuple(next(got) if n else None for n in need) + (None,) * 4
+
+
+def integrate_slab_plain(vol: TSDFVolume, depth, pose, rgb: Optional[torch.Tensor] = None,
+                         x0: int = 0) -> TSDFVolume:
+    """Plain PyTorch version of the dense fusion kernel: :func:`integrate_slab`
+    as ~50 full-volume tensor passes, differentiable. The CPU route, the
+    backward of :class:`_IntegrateSlab`, and the yardstick the kernel is
+    held against on the card."""
     cfg = vol.config
     dev = vol.device
     depth = torch.as_tensor(depth, dtype=torch.float32, device=dev)

@@ -1,4 +1,5 @@
-"""Brick fusion: the CUDA kernel (``csrc/fusion.cu``) and its plain version.
+"""Brick and dense fusion: the CUDA kernels (``csrc/fusion.cu``) and their
+plain versions.
 
 :func:`fuse_bricks` fuses one depth frame, and with color its rgb image,
 into the rows of a brick volume named by an update list, IN PLACE (the JAX
@@ -14,6 +15,12 @@ The update list ``rows`` is int32 [K, 4]: the brick coordinates (bx, by,
 bz) and the slot of each row, with slot -1 for a row that names no brick.
 State rows are [C, B^3] (bricks of any even size B, the voxel order
 (lx*B+ly)*B+lz), color rows [C, B^3, nc].
+
+:func:`fuse_dense` fuses one frame into a dense volume (or an X-slab of
+one) in one kernel pass, into fresh tensors: the counterpart of the JAX
+package's jitted, XLA-fused dense ``integrate`` (not a Pallas kernel). Its
+plain version is ``ops.fusion.integrate_slab_plain``; both kernels share
+the per-voxel device functions of ``csrc/fusion.cu``.
 """
 
 from __future__ import annotations
@@ -23,17 +30,18 @@ import ctypes
 import torch
 
 from ..config import COLOR_MODE_LAB, COLOR_MODE_RGB, COLOR_MODE_RGB_NORMALIZED, TSDFConfig
-from ..geometry import frustum_tans
-from ..volume import color_channels
+from ..geometry import frustum_tans, rigid_inverse
+from ..volume import TSDFVolume, color_channels
 from . import color as color_ops
 from .fusion import (coarse_cell_frustum, compute_observation, fuse_observation,
-                     gather_image, variance_weight)
+                     gather_image, integrate_slab_plain, variance_weight)
 
 # The kernel's color_mode codes (csrc/fusion.cu, enum ColorMode); 0 = none.
 COLOR_CODES = {COLOR_MODE_RGB: 1, COLOR_MODE_RGB_NORMALIZED: 2, COLOR_MODE_LAB: 3}
 
-# Kernel launches since the last reset (plain runs not counted).
-launches = {"fusion": 0}
+# Kernel launches since the last reset (plain runs not counted): the brick
+# kernel and the dense one.
+launches = {"fusion": 0, "dense_fusion": 0}
 
 
 class FusionParams(ctypes.Structure):
@@ -182,6 +190,64 @@ def fuse_bricks(cfg: TSDFConfig, rows, pose_inv, depth, sdf, weight, M, nsample,
              color.data_ptr() if with_color else None, stream_ptr(dev))
     check(err, "fuse_bricks")
     launches["fusion"] += 1
+
+
+def fuse_dense(vol: TSDFVolume, depth, pose, rgb=None, x0: int = 0) -> TSDFVolume:
+    """One frame fused into the dense X-slab [x0, x0 + n) that vol's
+    [n, yres, zres] tensors hold: a new volume of fresh tensors (the color
+    tensor is vol's own when there is no rgb or no color). depth [H, W],
+    pose [4, 4] camera-to-volume, rgb [H, W, 3] (0..255, truncated here).
+
+    On CPU tensors this is ``ops.fusion.integrate_slab_plain``; on CUDA
+    tensors it launches csrc/fusion.cu's dense kernel once and raises on
+    anything the kernel does not take. No autograd here: see
+    ``ops.fusion.integrate_slab``."""
+    if vol.device.type == "cpu":
+        return integrate_slab_plain(vol, depth, pose, rgb, x0)
+    from .._build import check, check_tensor, function, stream_ptr
+
+    cfg, dev = vol.config, vol.device
+    nx = vol.sdf.shape[0]
+    if not 0 <= x0 <= x0 + nx <= cfg.xres:
+        raise ValueError(f"fuse_dense: planes [{x0}, {x0 + nx}) are not in the grid's "
+                         f"{cfg.xres}")
+    H, W = cfg.image_height, cfg.image_width
+    depth = torch.as_tensor(depth, dtype=torch.float32, device=dev).contiguous()
+    pose_inv = rigid_inverse(torch.as_tensor(pose, dtype=torch.float32, device=dev))
+    with_color = vol.color is not None and rgb is not None
+    if with_color and cfg.color_mode not in COLOR_CODES:
+        raise ValueError(f"fuse_dense: color mode {cfg.color_mode!r} has no color channels")
+    shape = (nx, cfg.yres, cfg.zres)
+    checks = [("depth", depth, torch.float32, (H, W)),
+              ("sdf", vol.sdf, torch.float32, shape),
+              ("weight", vol.weight, torch.float32, shape),
+              ("M", vol.M, torch.float32, shape),
+              ("nsample", vol.nsample, torch.int32, shape)]
+    if with_color:
+        rgb = torch.trunc(torch.as_tensor(rgb, dtype=torch.float32, device=dev)).contiguous()
+        checks += [("color", vol.color, torch.float32, shape + (color_channels(cfg),)),
+                   ("rgb", rgb, torch.float32, (H, W, 3))]
+    for what, t, dt, want in checks:
+        check_tensor(f"fuse_dense: {what}", t, dt, want, dev)
+    out = [torch.empty_like(t) for t in (vol.sdf, vol.weight, vol.M, vol.nsample)]
+    color = torch.empty_like(vol.color) if with_color else vol.color
+    pose12 = pose_inv[:3].contiguous()
+    fn = function("fusion", "tsdf_fuse_dense",
+                  [ctypes.POINTER(FusionParams), ctypes.c_int, ctypes.c_int]
+                  + [ctypes.c_void_p] * 14)
+    params = fusion_params(cfg, with_color)
+
+    def ptr(t):
+        return t.data_ptr() if with_color else None
+
+    err = fn(ctypes.byref(params), x0, nx, pose12.data_ptr(), depth.data_ptr(), ptr(rgb),
+             vol.sdf.data_ptr(), vol.weight.data_ptr(), vol.M.data_ptr(),
+             vol.nsample.data_ptr(), ptr(vol.color), *(t.data_ptr() for t in out), ptr(color),
+             stream_ptr(dev))
+    check(err, "fuse_dense")
+    launches["dense_fusion"] += 1
+    return TSDFVolume(sdf=out[0], weight=out[1], M=out[2], nsample=out[3], color=color,
+                      global_transform=vol.global_transform, config=cfg)
 
 
 def bytes_moved(n_live_rows: int, H: int, W: int, nc: int, B: int = 8) -> int:

@@ -26,9 +26,13 @@ each chunk is one program of fixed shapes with no host sync
 ``check=True`` reads each batch of chunks' counts in one host sync and runs
 a chunk whose brick, cube or triangle budget overflowed again with that
 budget doubled, as the JAX package does; the result is compact and carries
-budget hints. ``check=False`` issues no host sync: fixed per-chunk
-buffers, ``tri_valid``, ``num_triangles`` and ``overflowed`` on the
-device; on the card it replays a CUDA graph (``graph.extract_graphed``).
+budget hints. On the card the brick stats replay a CUDA graph a live chunk
+and each chunk program one a budget triple, the chunk's start in a device
+buffer (``graph.checked_extraction``: the JAX package's shape, one
+compiled program a budget triple). ``check=False`` issues no host sync:
+fixed per-chunk buffers, ``tri_valid``, ``num_triangles`` and
+``overflowed`` on the device; on the card it replays a CUDA graph
+(``graph.extract_graphed``).
 
 The triangle order is the JAX package's: ascending slot of the candidate
 brick, then voxel, then triangle slot of the case table. The halo keeps
@@ -148,11 +152,27 @@ def _brick_stats(bv, live_chunks: tuple, chunk_slots: int, min_weight: float):
     dmin = torch.full((C + 1,), inf, dtype=torch.float32, device=bv.device)
     dmax = torch.full((C + 1,), -inf, dtype=torch.float32, device=bv.device)
     for s0 in live_chunks:
-        d = bv.sdf[s0:s0 + chunk_slots]
-        valid = (bv.weight[s0:s0 + chunk_slots] >= min_weight) & (torch.abs(d) < 1.0)
-        dmin[s0:s0 + chunk_slots] = torch.where(valid, d, inf).amin(1)
-        dmax[s0:s0 + chunk_slots] = torch.where(valid, d, -inf).amax(1)
+        _chunk_stats(bv, dmin, dmax, s0, chunk_slots, min_weight)
     return dmin, dmax
+
+
+def _chunk_slots_of(bv, slot0, chunk_slots: int):
+    """int32 [chunk_slots] slots of the chunk from slot0 (a Python int, or
+    a 0-dim int32 tensor on the device: the graphs' static start)."""
+    return torch.arange(chunk_slots, dtype=torch.int32, device=bv.device) + slot0
+
+
+def _chunk_stats(bv, dmin, dmax, slot0, chunk_slots: int, min_weight: float) -> None:
+    """:func:`_brick_stats` of the chunk from slot0, written into dmin and
+    dmax in place: the body of the JAX package's ``_brick_stats_scan``
+    (fixed shapes, no host sync; on the card a graph replayed a live
+    chunk, ``graph.checked_extraction``)."""
+    slots = _chunk_slots_of(bv, slot0, chunk_slots)
+    d = bv.sdf.index_select(0, slots)
+    valid = (bv.weight.index_select(0, slots) >= min_weight) & (torch.abs(d) < 1.0)
+    inf = float("inf")
+    dmin.index_copy_(0, slots.long(), torch.where(valid, d, inf).amin(1))
+    dmax.index_copy_(0, slots.long(), torch.where(valid, d, -inf).amax(1))
 
 
 def _neighbor_slots(bv, coords, live):
@@ -513,11 +533,13 @@ def _expand_colors(rgb):
 # the chunk program and the extraction entry points
 # ---------------------------------------------------------------------------
 
-def _extract_chunk(bv, stats, slot0: int, chunk_slots: int, cube_budget: int,
+def _extract_chunk(bv, stats, slot0, chunk_slots: int, cube_budget: int,
                    brick_budget: int, tri_budget: int, min_weight: float,
                    color_by_rgb: bool, color_by_confidence: bool, kernel: bool):
     """Triangles of the cubes whose lower corner lies in bricks [slot0,
-    slot0 + chunk_slots): fixed shapes, no host sync. `stats` is
+    slot0 + chunk_slots): fixed shapes, no host sync. slot0 is a Python int
+    or a 0-dim int32 device tensor (one graph then serves every chunk, as
+    the JAX package's ``_extract_chunk_compact`` traces it). `stats` is
     :func:`_brick_stats`' pair; ``kernel`` takes the kernel wrappers (which
     run their plain versions on CPU tensors), else the plain versions.
     Returns (vertices [tri_budget, 3, 3], colors [tri_budget, 3, 3] or None,
@@ -526,8 +548,8 @@ def _extract_chunk(bv, stats, slot0: int, chunk_slots: int, cube_budget: int,
     from ..activation import _compact
 
     C, dev = bv.capacity, bv.device
-    slots = torch.arange(slot0, slot0 + chunk_slots, dtype=torch.int32, device=dev)
-    cand = _candidate_mask(bv, stats, bv.coords[slot0:slot0 + chunk_slots])
+    slots = _chunk_slots_of(bv, slot0, chunk_slots)
+    cand = _candidate_mask(bv, stats, bv.coords.index_select(0, slots))
     bidx, n_bricks = _compact(cand, slots, brick_budget)
     cand_slots = torch.where(bidx >= 0, bidx, C)
     halo, emit = (corner_halo, emit_triangles) if kernel else (_corner_halo_plain, _emit_plain)
@@ -610,12 +632,16 @@ def extract_soup_bricks(bv, min_weight: float = DEFAULT_MIN_WEIGHT,
     corner_engine: "pallas" = the corner-halo and emission kernels (the
     CPU raises); "xla" or "interpret" = the plain route; None = use_kernel
     (None: the kernels on the card, the plain route on the CPU; False: the
-    plain route; True on the CPU raises). graph (check=False only): None =
-    on the card the CUDA graph of the chunk programs (``graph.
-    extract_graphed``, captured at the first call of this volume, these
-    settings, chunks and budgets, which runs as its warm-up; fresh
-    tensors), eager on the CPU and on the plain route; False = eager; True
-    raises where the graph cannot run (the CPU, the plain route, check)."""
+    plain route; True on the CPU raises). graph: None = on the card the
+    CUDA graphs of the chunk programs (check=False: ``graph.
+    extract_graphed``, one graph of every live chunk at their budgets;
+    check=True: ``graph.checked_extraction``, the brick stats' graph
+    replayed a live chunk and one chunk graph a budget triple replayed a
+    chunk, the counts read in the batch's one host sync), each captured at
+    its first run on this volume and settings, which runs as its warm-up;
+    the soup's tensors are fresh. Eager on the CPU and on the
+    plain route; False = eager; True raises where the graphs cannot run
+    (the CPU, the plain route)."""
     kernel = _resolve_engine(corner_engine, use_kernel, bv.device)
     return _extract(bv, min_weight, color_by_rgb, color_by_confidence, kernel, chunk_slots,
                     cube_budget, tri_budget, live_chunks, budget_hint, check, graph)
@@ -626,7 +652,7 @@ def _extract(bv, min_weight, color_by_rgb, color_by_confidence, kernel: bool,
              tri_budget: Optional[int] = None, live_chunks=None, budget_hint=None,
              check: bool = True, graph: Optional[bool] = None) -> MeshSoup:
     """extract_soup_bricks with the route chosen."""
-    from ..graph import extract_graphed, resolve_graph
+    from ..graph import checked_extraction, extract_graphed, resolve_graph
 
     dev = bv.device
     chunk_slots = min(chunk_slots, bv.capacity)
@@ -644,25 +670,30 @@ def _extract(bv, min_weight, color_by_rgb, color_by_confidence, kernel: bool,
             f"was measured on alongside it")
     budgets = (tuple(tuple(int(b) for b in h) for h in budget_hint) if budget_hint is not None
                else ((cube_budget, kb0, tri_budget),) * len(live_chunks))
-    args = (min_weight, color_by_rgb, color_by_confidence, kernel, chunk_slots, live_chunks,
-            budgets)
+    args = (min_weight, color_by_rgb, color_by_confidence, kernel, chunk_slots, live_chunks)
     use_graph = resolve_graph(graph, dev)
-    if use_graph and (check or not kernel):
+    if use_graph and not kernel:
         if graph:
-            raise ValueError("extract_soup_bricks: the extraction graph is the unchecked "
-                             "(check=False) kernel route")
+            raise ValueError("extract_soup_bricks: the extraction graphs are of the kernel "
+                             "route")
         use_graph = False
     if not check:
-        return extract_graphed(bv, *args) if use_graph else _extract_unchecked(bv, *args)
+        return (extract_graphed(bv, *args, budgets) if use_graph
+                else _extract_unchecked(bv, *args, budgets))
 
-    stats = _brick_stats(bv, live_chunks, chunk_slots, min_weight)
+    if use_graph:
+        run = checked_extraction(bv, *args)
+    else:
+        stats = _brick_stats(bv, live_chunks, chunk_slots, min_weight)
+
+        def run(s0, cb, kb, tb):
+            return _extract_chunk(bv, stats, s0, chunk_slots, cb, kb, tb, min_weight,
+                                  color_by_rgb, color_by_confidence, kernel)
+
     pending = [(s0, *b) for s0, b in zip(live_chunks, budgets)]
     done, hints = {}, {}
     while pending:
-        runs = [(s0, cb, kb, tb, _extract_chunk(bv, stats, s0, chunk_slots, cb, kb, tb,
-                                                min_weight, color_by_rgb,
-                                                color_by_confidence, kernel))
-                for s0, cb, kb, tb in pending]
+        runs = [(s0, cb, kb, tb, run(s0, cb, kb, tb)) for s0, cb, kb, tb in pending]
         counts = torch.stack([r[4][3] for r in runs]).tolist()    # one host sync a batch
         logging.getLogger("cpu_tsdf_tpu_torch").debug(
             "extract_soup_bricks: batch of %d chunks, (slot, cube, brick, tri) budgets %s, "
@@ -722,11 +753,12 @@ def extract_mesh_bricks(bv, min_weight: float = DEFAULT_MIN_WEIGHT,
                         color_by_rgb: bool = False,
                         color_by_confidence: bool = False,
                         chunk_slots: int = 2048, cube_budget: int = 1 << 15, *,
-                        use_kernel: Optional[bool] = None):
+                        use_kernel: Optional[bool] = None, graph: Optional[bool] = None):
     """Brick-native extraction (the checked route) returning numpy
-    (V, F, C | None)."""
+    (V, F, C | None); use_kernel and graph as in :func:`extract_soup_bricks`."""
     return extract_soup_bricks(bv, min_weight, color_by_rgb, color_by_confidence,
-                               chunk_slots, cube_budget, use_kernel=use_kernel).to_numpy()
+                               chunk_slots, cube_budget, use_kernel=use_kernel,
+                               graph=graph).to_numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -799,7 +831,8 @@ def marching_cubes(vol, min_weight: float = DEFAULT_MIN_WEIGHT,
 
 def extract_mesh(vol, min_weight: float = DEFAULT_MIN_WEIGHT,
                  color_by_rgb: bool = False, color_by_confidence: bool = False,
-                 max_cubes: Optional[int] = None, *, use_kernel: Optional[bool] = None):
+                 max_cubes: Optional[int] = None, *, use_kernel: Optional[bool] = None,
+                 graph: Optional[bool] = None):
     """Extract the isosurface as numpy (vertices [N*3, 3], faces [N, 3],
     colors [N*3, 3] | None).
 
@@ -811,17 +844,25 @@ def extract_mesh(vol, min_weight: float = DEFAULT_MIN_WEIGHT,
     next power of two of the crossing cubes, at least 1024; an overflow
     raises); on the brick route the per-chunk cube budget it starts from.
     use_kernel: None = the kernels on the card and the plain routes on the
-    CPU; False = the plain routes anywhere; True on the CPU raises."""
+    CPU; False = the plain routes anywhere; True on the CPU raises. graph:
+    the brick route's graphs (:func:`extract_soup_bricks`); None takes them
+    on the card for a brick volume but not for a dense one, whose brick
+    copy is new each call, so its graphs would never replay. A caller that
+    extracts a volume once (the CLIs) passes False: the captures of a first
+    call cost more than its eager run."""
     from ..bricks import BrickVolume, from_dense
 
     bargs = {} if max_cubes is None else {"cube_budget": int(max_cubes)}
     if isinstance(vol, BrickVolume):
         return extract_mesh_bricks(vol, min_weight, color_by_rgb, color_by_confidence,
-                                   use_kernel=use_kernel, **bargs)
+                                   use_kernel=use_kernel, graph=graph, **bargs)
     if resolve_use_kernel(use_kernel, vol.device):
         # from_dense sizes its capacity from the observed bricks: no overflow
         return extract_mesh_bricks(from_dense(vol, 8), min_weight, color_by_rgb,
-                                   color_by_confidence, use_kernel=True, **bargs)
+                                   color_by_confidence, use_kernel=True, graph=bool(graph),
+                                   **bargs)
+    if graph:
+        raise ValueError("extract_mesh: the extraction graphs are of the kernel route")
     if max_cubes is None:
         n = count_active_cubes(vol, min_weight)
         max_cubes = max(1024, 1 << int(np.ceil(np.log2(max(n, 1)))))

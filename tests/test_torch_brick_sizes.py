@@ -37,9 +37,11 @@ def _brick_scene(small_cfg, B, mode="RGB"):
 
 
 def _capacity(B):
-    """2048 rows of 8^3 scaled to the same voxels, and half of it a frame."""
+    """2048 rows of 8^3 scaled to the same voxels, and half of it a frame,
+    at most 2048 rows (the scenes take at most 540 rows at B = 4; the
+    Pallas kernel's interpret-mode compile grows with the budget)."""
     C = 2048 * 512 // B ** 3
-    return C, C // 2
+    return C, min(C // 2, 2048)
 
 
 def _fuse_through_kernel_wrapper(vol, depth, pose, rgb, budget):

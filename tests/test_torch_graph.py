@@ -254,6 +254,45 @@ def test_unchecked_extraction_has_no_host_sync(small_cfg, chunk_slots):
         assert len(checked.live_chunks) > 1
 
 
+def test_checked_extraction_syncs_once_a_batch(small_cfg, monkeypatch):
+    """The checked extraction in chunks of 64 slots, its budgets small
+    enough that a chunk retries, with the live chunks given: no op that
+    syncs with the host runs in it, and its only host reads are the
+    counts of each batch (one .tolist() a batch: the brick stats of each
+    live chunk and each pending chunk's program are what the card replays
+    from graphs, one a budget triple). graph=False gives the default's
+    triangles, colors and hints on CPU tensors, and graph=True raises
+    there."""
+    from cpu_tsdf_tpu_torch.ops import marching_cubes as tmc
+
+    vol, _ = _fused(small_cfg)
+    want = tmc.extract_soup_bricks(vol, 0.5, True, False, 64)
+    assert len(want.live_chunks) > 1 and int(want.num_triangles) > 300
+    reads = []
+    tolist = torch.Tensor.tolist
+
+    def counted(t):
+        reads.append(tuple(t.shape))
+        return tolist(t)
+
+    monkeypatch.setattr(torch.Tensor, "tolist", counted)
+    with SyncRecorder() as rec:
+        got = tmc.extract_soup_bricks(vol, 0.5, True, False, 64, 512,
+                                      live_chunks=want.live_chunks)
+    assert rec.syncs == [], rec.syncs
+    n = len(want.live_chunks)
+    assert len(reads) >= 2 and reads[0] == (n, 6) and all(r[1:] == (6,) for r in reads)
+    monkeypatch.undo()
+    eager = tmc.extract_soup_bricks(vol, 0.5, True, False, 64, 512,
+                                    live_chunks=want.live_chunks, graph=False)
+    for soup in (got, eager):
+        assert torch.equal(soup.vertices, want.vertices) and torch.equal(soup.colors,
+                                                                         want.colors)
+    assert got.budget_hint == eager.budget_hint == want.budget_hint
+    with pytest.raises(ValueError):
+        tmc.extract_soup_bricks(vol, 0.5, True, False, 64, graph=True)
+
+
 def test_refine_step_and_residual_have_no_host_sync(small_cfg):
     """A refine_pose_step and a depth_residual on device tensors (the step
     scale a 0-dim tensor: a Python number is filled on the device) run no
@@ -293,9 +332,10 @@ def test_organize_has_no_host_sync(small_cfg):
 
 
 def test_graph_switch_of_extraction_refine_organize(small_cfg):
-    """graph=True raises on the CPU in the unchecked extraction, the
-    refine step, the residual, refine_pose and organize_cloud (and with
-    check=True anywhere); graph=None on the CPU is the eager route."""
+    """graph=True raises on the CPU in the unchecked and the checked
+    extraction, extract_mesh of a brick and of a dense volume, the refine
+    step, the residual, refine_pose and organize_cloud; graph=None on the
+    CPU is the eager route."""
     from cpu_tsdf_tpu_torch import refine as tr
     from cpu_tsdf_tpu_torch.ops import marching_cubes as tmc
     from cpu_tsdf_tpu_torch.pipeline import organize_cloud
@@ -308,7 +348,9 @@ def test_graph_switch_of_extraction_refine_organize(small_cfg):
              lambda g: tr.depth_residual(vol, pose, depth, graph=g),
              lambda g: tr.refine_pose(vol, pose, depth, iters=1, graph=g),
              lambda g: organize_cloud(vol.config, np.ones((4, 3), np.float32), device="cpu",
-                                      graph=g)]
+                                      graph=g),
+             lambda g: tmc.extract_mesh(vol, 0.5, graph=g),
+             lambda g: tmc.extract_mesh(tb.to_dense(vol), 0.5, graph=g)]
     for call in calls:
         with pytest.raises(ValueError):
             call(True)
@@ -316,3 +358,42 @@ def test_graph_switch_of_extraction_refine_organize(small_cfg):
     assert torch.equal(a.tri_valid, b.tri_valid) and torch.equal(a.vertices[a.tri_valid],
                                                                  b.vertices[b.tri_valid])
     assert torch.equal(calls[2](None)[0], calls[2](False)[0])
+
+
+def test_checked_extraction_keeps_at_most_its_own_graphs(monkeypatch):
+    """A checked extraction's key keeps at most MAX_CHECKED_GRAPHS graphs:
+    a capture past that drops its least recently used chunk graph, never
+    its brick stats' graph (a replay makes a graph the most recently used
+    of its key); the key counts as one of the MAX_GRAPHS keys."""
+    monkeypatch.setattr(tg, "MAX_GRAPHS", 2)
+    monkeypatch.setattr(tg, "MAX_CHECKED_GRAPHS", 3)
+    monkeypatch.setattr(tg, "_cache", collections.OrderedDict())
+
+    class Captured:
+        out = "out"
+        warm = "warm"
+
+        def __init__(self, device=None, program=None):
+            pass
+
+        def replay(self):
+            pass
+
+    monkeypatch.setattr(tg, "_Captured", Captured)
+    checked = tg._CheckedGraphs.__new__(tg._CheckedGraphs)
+    checked.bv = dataclasses.make_dataclass("Vol", ["device"])(torch.device("cpu"))
+    checked.graphs = collections.OrderedDict()
+    for k in ("stats", 0, 1):
+        assert checked._run(k, None) == ("warm", False)    # a capture, its warm-up's result
+    assert checked._run(0, None) == ("out", True)          # a replay
+    assert list(checked.graphs) == ["stats", 1, 0]
+    assert checked._run(2, None) == ("warm", False)
+    assert list(checked.graphs) == ["stats", 0, 2]
+    assert checked._run("stats", None) == ("out", True)
+    assert checked._run(3, None) == ("warm", False)
+    assert list(checked.graphs) == [2, "stats", 3]
+    tg._keep("checked", checked)
+    tg._keep("frame", object())
+    assert list(tg._cache) == ["checked", "frame"]
+    tg._keep("render", object())                          # "checked" is the oldest key
+    assert list(tg._cache) == ["frame", "render"]

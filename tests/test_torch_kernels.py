@@ -793,7 +793,9 @@ def test_graphed_extraction_equals_eager(cuda_device):
     call counts one launch of each MC kernel a live chunk, and a result is
     not overwritten by the next call. An eager call raises nothing under
     set_sync_debug_mode("error"). A hint of a quarter of each budget sets
-    overflowed; graph=True raises on the plain route and with check=True."""
+    overflowed; graph=True raises on the plain route, and the checked route
+    with graph=True (its stats and chunk graphs) gives the checked
+    triangles."""
     vol = _render_volume(cuda_device, {}, 8)
     checked = mc.extract_soup_bricks(vol, 0.5, True, False, 64)
     n = len(checked.live_chunks)
@@ -823,8 +825,21 @@ def test_graphed_extraction_equals_eager(cuda_device):
         assert bool(soup.overflowed)
     with pytest.raises(ValueError):
         mc.extract_soup_bricks(vol, 0.5, True, False, 64, **hint, use_kernel=False, graph=True)
-    with pytest.raises(ValueError):
-        mc.extract_soup_bricks(vol, 0.5, True, graph=True)
+    # the checked route takes graph=True on the card: the brick stats'
+    # graph replayed a live chunk, a chunk graph a budget triple a chunk
+    assert_checked_equal(mc.extract_soup_bricks(vol, 0.5, True, False, 64, graph=True),
+                         mc.extract_soup_bricks(vol, 0.5, True, False, 64, graph=False),
+                         "checked, graph=True and graph=False")
+
+
+def assert_checked_equal(a, b, what):
+    """Two checked soups: bit-equal vertices and colors, equal counts,
+    live chunks and budget hints."""
+    assert int(a.num_triangles) == int(b.num_triangles) > 0, what
+    assert torch.equal(a.vertices, b.vertices), what
+    assert (a.colors is None) == (b.colors is None), what
+    assert a.colors is None or torch.equal(a.colors, b.colors), what
+    assert a.live_chunks == b.live_chunks and a.budget_hint == b.budget_hint, what
 
 
 def test_extraction_graph_recaptures_after_volume_replaced(cuda_device):
@@ -934,3 +949,182 @@ def test_graphed_organize_equals_eager(cuda_device):
             outs.append((g[0].clone(), g[0]))
     assert all(torch.equal(a.nan_to_num(), b.nan_to_num()) for a, b in outs)
     assert int((~outs[0][0].isnan()).sum()) > 1000
+
+
+# ---------------------------------------------------------------------------
+# the checked extraction's graphs and the dense fusion kernel
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B", [8, 4])
+def test_graphed_checked_extraction_equals_eager(cuda_device, B):
+    """The checked extraction (chunks of 64 slots) at bricks of 8 and 4,
+    with the default budgets and with a cube budget of 32, which sends
+    chunks to a retry batch: its graphs (the default on the card: the
+    brick stats' graph replayed a live chunk, one chunk graph a budget
+    triple replayed a chunk) and the eager route give bit-equal triangles,
+    colors, live chunks and
+    hints; each graphed call launches the MC kernels as often as an eager
+    one; a result is not overwritten by the next call. The default budgets
+    take one chunk graph, the small one several (one a budget triple)."""
+    from cpu_tsdf_tpu_torch import graph as tg
+
+    vol = _render_volume(cuda_device, {}, B)
+    for budget in (1 << 15, 32):
+        tg.clear()
+        mc.launches.update(corner_halo=0, emit=0)
+        eager = mc.extract_soup_bricks(vol, 0.5, True, False, 64, budget, graph=False)
+        per_call = dict(mc.launches)
+        graphed = [mc.extract_soup_bricks(vol, 0.5, True, False, 64, budget)
+                   for _ in range(3)]
+        torch.cuda.synchronize()
+        assert mc.launches == {k: 4 * v for k, v in per_call.items()}, (B, budget)
+        assert len(eager.live_chunks) >= 2 and int(eager.num_triangles) > 1000
+        for g in graphed:
+            assert_checked_equal(g, eager, f"B={B}, cube budget {budget}")
+        assert graphed[0].vertices.data_ptr() != graphed[1].vertices.data_ptr()
+        kinds = [g["kind"] for g in tg.stats()]
+        # the brick stats' graph and one chunk graph a budget triple: the
+        # retries double the budgets batch by batch
+        assert kinds.count("extract_checked_stats") == 1, kinds
+        assert (kinds.count("extract_checked_chunk") == 1) == (budget > 32), kinds
+        if budget == 32:
+            assert per_call["emit"] > len(eager.live_chunks)  # chunks ran again
+
+
+def _dense_cfg(mode, options):
+    cfg = CFG if mode is None else CFG.with_updates(integrate_color=True, color_mode=mode)
+    return cfg.with_updates(**options)
+
+
+# (color mode, config options, frames, orbit step in rad, depth noise in m,
+# first x-plane of the slab: 0 = the whole grid, else planes [x0, x0 + 48)).
+# zres 90 is not a multiple of 4: the kernel's one-voxel-a-thread path.
+DENSE_CASES = {
+    "plain": (None, {}, 4, 0.5, 0.0, 0),
+    "rgb": ("RGB", {}, 4, 0.5, 0.0, 0),
+    "rgb_normalized": ("RGBNormalized", {}, 4, 0.5, 0.0, 0),
+    "lab": ("LAB", {}, 4, 0.5, 0.0, 0),
+    "no_frustum_culling": ("RGB", {"frustum_culling": False}, 4, 0.5, 0.0, 0),
+    "weights": (None, {"weight_by_depth": True, "weight_by_variance": True}, 8, 0.05, 0.0015,
+                0),
+    "slab_x0_40": ("RGB", {}, 4, 0.5, 0.0, 40),
+    "zres_90": ("RGB", {"zres": 90}, 4, 0.5, 0.0, 0),
+}
+
+
+def assert_dense_equal(k, p, mode, what):
+    """fusion's tolerances: weight (NaN where NaN), nsample and RGB color
+    exact; sdf and M within 1e-5; RGBNormalized and LAB color within 1e-4
+    (see test_fusion_kernel_matches_plain)."""
+    assert torch.equal(k.nsample, p.nsample), what
+    torch.testing.assert_close(k.weight, p.weight, atol=0, rtol=0, equal_nan=True, msg=what)
+    for name in ("sdf", "M"):
+        torch.testing.assert_close(getattr(k, name), getattr(p, name), atol=1e-5, rtol=0,
+                                   equal_nan=True, msg=what)
+    if mode == "RGB":
+        assert torch.equal(k.color, p.color), what
+    elif mode is not None:
+        torch.testing.assert_close(k.color, p.color, atol=1e-4, rtol=0, equal_nan=True,
+                                   msg=what)
+
+
+@pytest.mark.parametrize("case", list(DENSE_CASES))
+def test_dense_kernel_matches_plain(cuda_device, case):
+    """ops.fusion.integrate_slab through the dense kernel (its default on
+    the card) against integrate_slab_plain, frame after frame on a 128^3
+    grid: all three color modes, frustum culling off, the depth and
+    variance weights, a slab of planes [40, 88) and a grid whose zres is
+    not a multiple of 4. One kernel launch a frame."""
+    from cpu_tsdf_tpu_torch import make_volume
+    from cpu_tsdf_tpu_torch.ops.fusion import integrate_slab, integrate_slab_plain
+
+    mode, options, n, step, noise, x0 = DENSE_CASES[case]
+    cfg = _dense_cfg(mode, options)
+    vol = make_volume(cfg, device=cuda_device)
+    if x0:
+        vol = dataclasses.replace(vol, **{k: getattr(vol, k)[x0:x0 + 48].clone()
+                                          for k in ("sdf", "weight", "M", "nsample", "color")
+                                          if getattr(vol, k) is not None})
+    k = p = vol
+    fk.launches["dense_fusion"] = 0
+    for pose, depth, rgb in _frames(cfg, n, step, noise):
+        rgb = None if mode is None else rgb
+        k = integrate_slab(k, depth, pose, rgb, x0)
+        p = integrate_slab_plain(p, depth, pose, rgb, x0)
+    torch.cuda.synchronize()
+    assert fk.launches["dense_fusion"] == n
+    assert int((k.weight > 0).sum()) > 1000
+    if options.get("weight_by_variance"):
+        assert int((k.nsample > 6).sum()) > 1000  # the gate ran on many voxels
+    assert_dense_equal(k, p, mode, case)
+
+
+def test_dense_kernel_gradients_match_plain(cuda_device):
+    """integrate's gradients of a seeded weighting of the new sdf, M and
+    color, for the depth, the pose, the rgb image and the old sdf, through
+    the kernel's forward and through the plain version's, within 1e-5
+    relative to the largest entry, NaN at the same entries (both backwards
+    recompute the plain version; its gathers' backward adds with atomics,
+    in any order)."""
+    from cpu_tsdf_tpu_torch import integrate, make_volume
+
+    cfg = _dense_cfg("RGB", {})
+    frames = list(_frames(cfg, 3))
+    vol = make_volume(cfg, device=cuda_device)
+    for pose, depth, rgb in frames[:2]:
+        vol = integrate(vol, depth, pose, rgb)
+    pose, depth, rgb = frames[2]
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    wts = torch.randn((3,) + vol.sdf.shape, generator=gen, device=cuda_device)
+    grads = []
+    for use_kernel in (True, False):
+        ins = [torch.as_tensor(x, device=cuda_device).requires_grad_(True)
+               for x in (depth, pose, rgb)]
+        sdf = vol.sdf.clone().requires_grad_(True)
+        before = fk.launches["dense_fusion"]
+        out = integrate(dataclasses.replace(vol, sdf=sdf), *ins, use_kernel=use_kernel)
+        assert fk.launches["dense_fusion"] == before + int(use_kernel)
+        loss = (torch.nansum(out.sdf * wts[0]) + torch.nansum(out.M * wts[1])
+                + torch.nansum(out.color * wts[2][..., None]))
+        grads.append(torch.autograd.grad(loss, ins + [sdf]))
+    for name, gk, gp in zip(("depth", "pose", "rgb", "sdf"), *grads):
+        # NaN where the plain version's is: the missing depth pixels and
+        # the voxels that see them (a NaN observation times the zero
+        # cotangent of an unobserved voxel)
+        assert torch.equal(gk.isnan(), gp.isnan()), name
+        assert not gk.isnan().any() if name in ("pose", "rgb") else \
+            float(gk.isnan().float().mean()) < 0.5, name
+        gk, gp = gk.nan_to_num(), gp.nan_to_num()
+        scale = float(gp.abs().max())
+        assert float((gk - gp).abs().max()) <= 1e-5 * scale, name
+        assert name == "rgb" or scale > 0, name   # trunc passes no gradient to rgb
+
+
+def test_dense_kernel_64bit_offsets(cuda_device):
+    """A 1024 x 1024 x 704 grid with RGB color (3 m wide; its color tensor
+    has 2.2e9 entries, past 2^31; 41 GB of state in and out) fused from one
+    frame of a camera at x = +2 m looking at the sphere: the kernel's last
+    8 x-planes equal integrate_slab_plain on those planes of the input."""
+    from cpu_tsdf_tpu_torch import TSDFVolume, integrate, make_volume
+    from cpu_tsdf_tpu_torch.ops.fusion import integrate_slab_plain
+
+    torch.cuda.empty_cache()
+    cfg = TSDFConfig().with_updates(xres=1024, yres=1024, zres=704, zsize=3.0 * 704 / 1024,
+                                    integrate_color=True, color_mode="RGB")
+    pose = orbit_pose(np.pi / 2, orbit_radius=2.0)
+    depth = sphere_depth_world(cfg, pose, radius=0.5)
+    rgb = np.random.default_rng(5).integers(0, 256, depth.shape + (3,)).astype(np.float32)
+    vol = make_volume(cfg, device=cuda_device)
+    assert vol.color.numel() > 2 ** 31
+    out = integrate(vol, depth, pose, rgb)
+    x0 = cfg.xres - 8
+    last = TSDFVolume(**{k: getattr(vol, k)[x0:].clone()
+                         for k in ("sdf", "weight", "M", "nsample", "color")},
+                      global_transform=vol.global_transform, config=cfg)
+    del vol
+    p = integrate_slab_plain(last, depth, pose, rgb, x0)
+    k = TSDFVolume(**{k: getattr(out, k)[x0:] for k in ("sdf", "weight", "M", "nsample", "color")},
+                   global_transform=out.global_transform, config=cfg)
+    torch.cuda.synchronize()
+    assert int((p.weight > 0).sum()) > 1000 and int((p.color > 0).sum()) > 1000
+    assert_dense_equal(k, p, "RGB", "the last 8 planes")

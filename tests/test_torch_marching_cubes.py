@@ -78,10 +78,20 @@ def _padded_candidates(tv):
     return slots
 
 
-def test_corner_stacks_plain_match_pallas(volumes):
+@pytest.fixture(scope="module")
+def pallas_stacks(volumes):
+    """The padded candidate slots and the Pallas corner-stack kernel's
+    (interpret mode) dense stacks, ok mask and pack-left table on them, in
+    numpy: one interpret-mode run that both tests below hold the port to."""
     jv, tv = volumes
     slots = _padded_candidates(tv)
     jd, jok, jloc, _, _ = jmc._corner_stacks_pallas(jv, jnp.asarray(slots), MIN_W, True)
+    return slots, np.asarray(jd), np.asarray(jok), np.asarray(jloc)
+
+
+def test_corner_stacks_plain_match_pallas(volumes, pallas_stacks):
+    jv, tv = volumes
+    slots, jd, jok, jloc = pallas_stacks
     td, tok = tmc._corner_stacks(tv, torch.from_numpy(slots), MIN_W)
     tloc = tmc._pack_left_plain(tok)
     np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
@@ -93,14 +103,12 @@ def test_corner_stacks_plain_match_pallas(volumes):
     np.testing.assert_array_equal(tok.numpy(), np.asarray(xok))
 
 
-def test_corner_halo_plain_matches_pallas(volumes):
+def test_corner_halo_plain_matches_pallas(volumes, pallas_stacks):
     """corner_halo's compacted outputs (the kernel's contract) are the
     Pallas kernel's dense stacks gathered through its pack-left table:
     count, cube codes, triangle counts and the live corner rows exact."""
     jv, tv = volumes
-    slots = _padded_candidates(tv)
-    jd, jok, jloc, _, _ = jmc._corner_stacks_pallas(jv, jnp.asarray(slots), MIN_W, True)
-    jd, jok, jloc = np.asarray(jd), np.asarray(jok), np.asarray(jloc)
+    slots, jd, jok, jloc = pallas_stacks
     count, cube, corners, ntri = tmc.corner_halo(tv, torch.from_numpy(slots), MIN_W)
     K = len(slots)
     want_count = jok.sum(1)
