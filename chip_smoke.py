@@ -141,15 +141,25 @@ Phases (any failure raises and exits non-zero before the last line):
 
  13. the dense integrate and the checked extraction's graphs: 4 colored
      orbit frames fused at 512^3 by ops.fusion.integrate (the dense fusion
-     kernel of csrc/fusion.cu, its default on the card), the kernel's
-     launch count zeroed just before and read just after (one a frame),
-     and by its plain version (use_kernel=False), the volumes equal
+     kernel of csrc/fusion.cu, its default on the card), in place (the
+     volume is donated: each frame returns the input's tensors and
+     allocates less than one state tensor, by max_memory_allocated), the
+     kernel's launch count zeroed just before and read just after (one a
+     frame), and by its plain version (use_kernel=False), the volumes equal
      (weight, nsample and color exact, sdf and M within 1e-5), with each
-     route's frame ms; the kernel against integrate_slab_plain on a fifth
-     frame with the same tolerances, CUDA-event times of both, the bound of
-     the frame (the observed voxels read and written once, every voxel
-     projected: fusion's bound) and beside it that of every voxel read and
-     written once (bound_all_ms), busy shares. Then the checked extraction
+     route's frame ms; a fifth frame under autograd (the kernel on a copy:
+     one launch, the input unchanged, its host-clock ms); the kernel in
+     place against integrate_slab_plain on a copy of the same state on that
+     frame, with the same tolerances, CUDA-event times of both (the kernel
+     on a copy kept for timing), the bound of the frame (the observed
+     voxels read and written once; the candidate voxels, counted one by one
+     from the pose and the depth by fusion_kernel.dense_candidates,
+     projected and tested) and beside it the earlier two: every voxel projected
+     (bound_every_voxel_projected_ms) and every voxel read and written once
+     (bound_all_ms), the voxels the kernel projected (its column
+     intervals, read back from the kernel and held equal to
+     fusion_kernel.dense_column_intervals column for column), busy
+     shares. Then the checked extraction
      through its graphs (the default on the card: the brick stats' graph
      replayed a live chunk, one chunk graph a budget triple replayed a
      chunk) and eagerly on phase 2's volume and on a 4^3 volume of 16 orbit
@@ -1789,25 +1799,39 @@ def dense_phase(torch, cfg, vol, poses, depths, rgb, smi, timer):
     from cpu_tsdf_tpu_torch import bricks, graph
     from cpu_tsdf_tpu_torch.ops import fusion_kernel as fk
     from cpu_tsdf_tpu_torch.ops import marching_cubes as mc
+    from cpu_tsdf_tpu_torch.geometry import rigid_inverse
     from cpu_tsdf_tpu_torch.ops.fusion import integrate_slab_plain
 
     dev = poses.device
     res = {"card": smi, "grid": [cfg.xres, cfg.yres, cfg.zres], "frames": DENSE_FRAMES}
     # ---- 1. the dense frames through the kernel (integrate's default) -----
+    # in place: the volume is donated, and the route allocates nothing of
+    # its size
     torch.cuda.empty_cache()
     vk = T.make_volume(cfg, device=dev)
+    state_bytes = vk.sdf.numel() * vk.sdf.element_size()
     torch.cuda.synchronize()
     fk.launches["dense_fusion"] = 0
     ms = {"kernel": [], "plain": []}
+    extra = []
     for i in range(DENSE_FRAMES):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
-        vk = T.integrate(vk, depths[i], poses[i], rgb)
+        out = T.integrate(vk, depths[i], poses[i], rgb)
         torch.cuda.synchronize()
         ms["kernel"].append((time.perf_counter() - t0) * 1e3)
+        extra.append(torch.cuda.max_memory_allocated() - base)
+        if out.sdf is not vk.sdf or out.color is not vk.color:
+            raise AssertionError("dense integrate: the kernel route did not update in place")
+        vk = out
     launches = fk.launches["dense_fusion"]
     if launches != DENSE_FRAMES:
         raise AssertionError(f"dense integrate: {launches} kernel launches in {DENSE_FRAMES} "
                              "frames")
+    if max(extra) >= state_bytes:
+        raise AssertionError(f"dense integrate in place allocated {max(extra)} bytes, one "
+                             f"state tensor is {state_bytes}")
     vp = T.make_volume(cfg, device=dev)
     for i in range(DENSE_FRAMES):
         torch.cuda.synchronize()
@@ -1817,52 +1841,107 @@ def dense_phase(torch, cfg, vol, poses, depths, rgb, smi, timer):
         ms["plain"].append((time.perf_counter() - t0) * 1e3)
     err = dense_equal(torch, vk, vp, f"{DENSE_FRAMES} dense frames")
     res.update(frame_ms=ms, launches=launches, frames_max_abs_err=err,
+               peak_extra_bytes=extra, state_tensor_bytes=state_bytes,
                observed_voxels=int((vk.weight > 0).sum()))
     del vp
-    log(f"dense integrate at {res['grid']} with RGB color: {DENSE_FRAMES} frames through the "
-        f"kernel equal to the plain route's (weight, nsample, color exact, sdf/M err {err}); "
-        f"frame ms (host clock, synchronized) kernel {ms['kernel']}, plain {ms['plain']}; "
-        f"{res['observed_voxels']} voxels observed; {launches} kernel launches")
+    log(f"dense integrate at {res['grid']} with RGB color, in place: {DENSE_FRAMES} frames "
+        f"through the kernel equal to the plain route's (weight, nsample, color exact, sdf/M "
+        f"err {err}); frame ms (host clock, synchronized) kernel {ms['kernel']}, plain "
+        f"{ms['plain']}; at most {max(extra)} bytes allocated a frame (one state tensor: "
+        f"{state_bytes}); {res['observed_voxels']} voxels observed; {launches} kernel launches")
 
     # ---- 2. the kernel against its plain version on one more frame --------
     i = DENSE_FRAMES
-    k = fk.fuse_dense(vk, depths[i], poses[i], rgb)
-    p = integrate_slab_plain(vk, depths[i], poses[i], rgb)
+    depth_t = torch.as_tensor(depths[i], device=dev)
+    pose_t = torch.as_tensor(poses[i], device=dev)
+    # the autograd route: the kernel on a copy, the input left as it was
+    start = dense_copy(vk)
+    torch.cuda.synchronize()
+    before = fk.launches["dense_fusion"]
+    t0 = time.perf_counter()
+    g = T.integrate(vk, depth_t.clone().requires_grad_(True), pose_t, rgb)
+    torch.cuda.synchronize()
+    res["autograd_frame_ms"] = (time.perf_counter() - t0) * 1e3
+    if fk.launches["dense_fusion"] != before + 1 or g.sdf is vk.sdf:
+        raise AssertionError("dense integrate under autograd: not one launch on a copy")
+    dense_equal(torch, vk, start, "the input of the autograd route")
+    del g
+    # the kernel on vk in place, the plain version on a copy of its state;
+    # the kernel writes each column's z-interval into iv
+    p = integrate_slab_plain(start, depth_t, pose_t, rgb)
+    n_obs = int((p.nsample - start.nsample).sum())  # an observed voxel's nsample went up by 1
+    iv = torch.full((cfg.xres * cfg.yres, 2), -7, dtype=torch.int32, device=dev)
+    k = fk.fuse_dense(vk, depth_t, pose_t, rgb, intervals=iv)
     err = dense_equal(torch, k, p, "the dense kernel on one frame")
+    del k, p, vk
     n_vox = cfg.xres * cfg.yres * cfg.zres
-    n_obs = int((k.nsample - vk.nsample).sum())     # each observed voxel's nsample went up by 1
-    del k, p
-    t_k = timer.ms(lambda: fk.fuse_dense(vk, depths[i], poses[i], rgb), spin=True)
-    t_p = timer.ms(lambda: integrate_slab_plain(vk, depths[i], poses[i], rgb), reps=3,
+    # timed on a copy kept for timing: repeated launches move its state on,
+    # but not which voxels are observed (that follows from the projection
+    # and the depth alone), so each launch does the same work
+    t_k = timer.ms(lambda: fk.fuse_dense(start, depth_t, pose_t, rgb), spin=True)
+    t_p = timer.ms(lambda: integrate_slab_plain(start, depth_t, pose_t, rgb), reps=3,
                    warmup=1, spin=True)
-    H, W, nc = cfg.image_height, cfg.image_width, vk.color.shape[-1]
-    # the bound, as fusion's: the observed voxels' state and color read and
-    # written once (whether a voxel is observed follows from its projection
-    # and the depth image alone: an in-place fusion, as JAX's donated one,
-    # touches no other voxel), every voxel projected and tested; beside it
-    # every voxel read and written, what the kernel's fresh outputs need
+    # the wrapper's device time by kernel (torch.profiler): the dense
+    # kernel, the depth reduction before it, and the glue (pose inverse,
+    # rgb trunc)
+    parts = device_kernels(torch, lambda: fk.fuse_dense(start, depth_t, pose_t, rgb))
+    breakdown = {"fuse_dense_kernel": 0.0, "depth_max_kernel": 0.0, "glue": 0.0}
+    for name, kms, _ in parts:
+        key = next((k for k in breakdown if k in name), "glue")
+        breakdown[key] += kms
+    H, W, nc = cfg.image_height, cfg.image_width, start.color.shape[-1]
+    # the bound: the observed voxels' state and color read and written once
+    # (an in-place fusion, as JAX's donated one, touches no other voxel),
+    # the candidate voxels projected and tested (counted voxel by voxel from
+    # the pose and the depth: inside the pinhole frustum, in the sensor's
+    # range, in front of the deepest reading plus the band), the observed
+    # ones updated. Beside it the earlier kernel's two bounds: every voxel projected,
+    # and every voxel read and written once
+    pose_inv = rigid_inverse(pose_t)
+    n_cand = int(fk.dense_candidates(cfg, pose_inv, depth_t))
+    # the voxels the kernel projected: its intervals' groups of 4, as it
+    # walked them; its intervals equal the cull's plain version
+    lo, hi = fk.dense_column_intervals(cfg, pose_inv, depth_t)
+    if not torch.equal(iv.long(), torch.stack([lo.reshape(-1), hi.reshape(-1)], 1)):
+        raise AssertionError("the dense kernel's column intervals differ from "
+                             "fusion_kernel.dense_column_intervals")
+    klo, khi = iv[:, 0].long(), iv[:, 1].long()
+    n_cull = int(torch.where(klo <= khi, (khi // 4 - klo // 4 + 1) * 4, 0).sum())
+    if not n_obs <= n_cand <= n_cull:
+        raise AssertionError(f"dense counts: {n_obs} observed, {n_cand} candidates, "
+                             f"{n_cull} voxels in the kernel's column intervals")
     obs_bytes = fk.voxel_bytes(n_obs, H, W, nc)
     all_bytes = fk.voxel_bytes(n_vox, H, W, nc)
     rec = record("dense_fusion", "cpu_tsdf_tpu_torch/csrc/fusion.cu",
                  "cpu_tsdf_tpu/ops/fusion.py:141", launches, err, t_k, t_p, obs_bytes,
-                 fk.ops_needed(cfg, n_vox, n_obs))
+                 fk.ops_needed(cfg, n_cand, n_obs))
+    rec["bound_every_voxel_projected_ms"] = max(
+        obs_bytes / HBM_BYTES_PER_S, fk.ops_needed(cfg, n_vox, n_obs) / FP32_OPS_PER_S) * 1e3
     rec["bound_all_ms"] = all_bytes / HBM_BYTES_PER_S * 1e3
     rec["replaces_kind"] = "jax.jit program fused by XLA (not a Pallas kernel)"
+    rec.update(candidates=n_cand, observed=n_obs, projected_by_kernel=n_cull,
+               device_ms_by_kernel=breakdown)
     res.update(kernel_ms=t_k, plain_ms=t_p, bound_ms=rec["bound_ms"],
                bound_by=rec["bound_by"], bytes_observed=obs_bytes,
+               bound_every_voxel_projected_ms=rec["bound_every_voxel_projected_ms"],
                bound_all_ms=rec["bound_all_ms"], bytes_all=all_bytes,
-               observed_in_frame=n_obs)
+               observed_in_frame=n_obs, candidates=n_cand, projected_by_kernel=n_cull,
+               share_of_bound=rec["bound_ms"] / t_k, device_ms_by_kernel=breakdown)
     res["busy"] = {r: busy_share(torch, lambda: [T.integrate(
-        vk, depths[j], poses[j], rgb, use_kernel=r == "kernel") for j in range(3)])
+        start, depths[j], poses[j], rgb, use_kernel=r == "kernel") for j in range(3)])
         for r in ("kernel", "plain")}
-    log(f"dense kernel vs plain on frame {i}: equal (sdf/M err {err}); kernel {t_k:.4f} ms, "
+    log(f"dense kernel vs plain on frame {i}: equal (sdf/M err {err}); kernel {t_k:.5f} ms, "
         f"plain {t_p:.4f} ms (device, CUDA events); bound {rec['bound_ms']:.5f} ms "
-        f"({obs_bytes} bytes observed, {rec['bound_by']}); every voxel read and written "
-        f"{rec['bound_all_ms']:.4f} ms ({all_bytes} bytes); {n_obs} of {n_vox} voxels "
-        f"observed; busy share "
-        f"kernel {res['busy']['kernel']['share']:.4f}, plain "
-        f"{res['busy']['plain']['share']:.4f}")
-    del vk
+        f"({rec['bound_by']}: {n_cand} candidates projected, {n_obs} of {n_vox} voxels "
+        f"observed, {obs_bytes} bytes), {100 * rec['bound_ms'] / t_k:.1f} % of it; the "
+        f"kernel's intervals (read back from it, equal to the plain cull's) hold {n_cull} "
+        f"voxels; every voxel projected "
+        f"{rec['bound_every_voxel_projected_ms']:.5f} ms, every voxel read and written "
+        f"{rec['bound_all_ms']:.4f} ms ({all_bytes} bytes); the autograd route's frame "
+        f"{res['autograd_frame_ms']:.3f} ms (host clock); device ms by kernel "
+        f"(torch.profiler) {breakdown}; busy share kernel "
+        f"{res['busy']['kernel']['share']:.4f}, plain {res['busy']['plain']['share']:.4f}")
+    del start
     torch.cuda.empty_cache()
 
     # ---- 3. the checked extraction, graphed and eager -----------------------
@@ -1876,6 +1955,14 @@ def dense_phase(torch, cfg, vol, poses, depths, rgb, smi, timer):
         raise AssertionError("the 4^3 volume overflowed")
     res["checked_4"] = checked_routes(torch, mc, graph, v4, "4^3 bricks")
     return res, rec
+
+
+def dense_copy(vol):
+    """A dense volume with copies of vol's state and color."""
+    import dataclasses
+
+    return dataclasses.replace(vol, **{k: getattr(vol, k).clone()
+                                       for k in ("sdf", "weight", "M", "nsample", "color")})
 
 
 def dense_equal(torch, a, b, what: str) -> float:

@@ -185,15 +185,21 @@ __device__ __forceinline__ void update_color(float* c, float w0, float w_new, fl
   }
 }
 
+// Whether the frame observes a voxel, from its projection and the loaded
+// depth z alone (z is 0 where the projection failed): a reading, and no
+// carving behind the band. It reads no state.
+__device__ __forceinline__ bool observed(const FusionParams& p, const Projection& o, float z) {
+  return o.valid && !isnan(z) && z - o.vz >= -p.max_dist_neg;
+}
+
 // One voxel's update from its projection and the loaded depth z and
 // (r, g, b); returns whether the voxel was observed (and changed).
 template <int CM>
 __device__ __forceinline__ bool fuse_voxel(const FusionParams& p, const Projection& o,
                                            float z, float r, float g, float b, float& d,
                                            float& w, float& Mv, int& n, float* c) {
-  bool valid = o.valid && !isnan(z);  // z is 0 where the projection failed
+  const bool valid = observed(p, o, z);
   float d_new = z - o.vz;
-  valid = valid && d_new >= -p.max_dist_neg;  // no carving behind the band
   d_new = fminf(d_new, p.max_dist_pos) / p.max_dist_neg;
   float w_new = 1.0f;
   if (p.weight_by_depth) w_new = 1.0f - fminf(z / 10.0f, 1.0f);
@@ -369,157 +375,337 @@ extern "C" int tsdf_fuse_bricks(const FusionParams* params, const void* rows,
   return (int)cudaGetLastError();
 }
 
+
 // ---------------------------------------------------------------------------
-// Dense fusion kernel: one depth frame (and its color) fused into the dense
-// [nx, yres, zres] X-slab starting at plane x0, into fresh output tensors.
+// Dense fusion kernel: one depth frame (and its color) fused IN PLACE into
+// the dense [nx, yres, zres] X-slab starting at plane x0.
 //
 // Replaces the JAX package's jitted dense integrate (cpu_tsdf_tpu/ops/
-// fusion.py:141-193, jax.jit with the volume donated), which XLA fuses into
-// a few loops over the grid; it is not a Pallas kernel. The contract is the
-// plain version, cpu_tsdf_tpu_torch/ops/fusion.py::integrate_slab_plain.
-// The per-voxel expression is the brick kernel's: project() and
-// fuse_voxel<CM>() above (with update_color<CM>), so both fusions compile
-// one expression, in the same operation order, under --fmad=false.
+// fusion.py:141, jax.jit with the volume donated, donate_argnums=(0,)),
+// which XLA fuses into a few loops over the grid; it is not a Pallas
+// kernel. The contract is the plain version, cpu_tsdf_tpu_torch/ops/
+// fusion.py::integrate_slab_plain, bit for bit. The per-voxel expression
+// is the brick kernel's: project(), observed() and fuse_voxel<CM>() above
+// (with update_color<CM>), so both fusions compile one expression, in the
+// same operation order, under --fmad=false.
 //
-// Launch: thread t takes the V consecutive voxels of the slab from linear
-// index t * V (voxel order (x*yres + y)*zres + z, the layout of the dense
-// tensors). V = 4 when zres is a multiple of 4 and every state pointer is
-// 16-byte aligned: the four voxels then share x and y, and each state field
-// is one 16-byte load and store (color nc of them). Otherwise V = 1.
-// Offsets are 64-bit: a 1024 x 1024 x 704 grid fits on an 80 GB card with
-// color, and its color tensor has more than 2^31 entries.
+// Bound on this card: device memory, by a little. A frame observes ~0.1 %
+// of the grid (128,978 of 512^3 voxels on the main path); their state and
+// color, read and written once, and the images are ~12 MB (0.0036 ms at
+// 3.35 TB/s). The voxels that could be observed at all (inside the pinhole
+// frustum, within the sensor's range, in front of the frame's deepest
+// reading plus the band: ~0.6 % of the grid) must also be projected and
+// tested, ~77 float32 operations each (0.001 ms). A pass over every voxel
+// (the design this replaces: 7.5 GB read and written, 2.24 ms), or even
+// projecting every voxel (0.15 ms), is 40-600x that. What the kernel
+// waits on in practice is latency: a group's depth gather, then its state.
 //
-// Bound: device memory. The outputs are fresh (the port's dense integrate
-// returns a new volume, and its autograd recomputes from the old one), so
-// every voxel's state and color is read once and written once: 2 x 28 B a
-// voxel with RGB color, 7.52 GB at 512^3, 2.24 ms at 3.35 TB/s. The depth
-// and rgb images are gathered and stay in the 50 MB L2. Nothing else is
-// written: the ~50 full-volume passes of the plain version (and its int64
-// gather indices) collapse into this one.
+// Design:
+// 1. In place. The volume is donated, as in JAX: a voxel the frame does
+//    not observe is neither read nor written.
+// 2. Projection before any state access. A voxel's projection, range,
+//    pixel and coarse frustum tests and depth gather come first; its state
+//    (and the rgb pixel) is loaded only when observed() holds. Four voxels
+//    that share a 16-byte vector are loaded and stored together if any of
+//    them is observed (the others are written back as they were). The
+//    variance gate reads only an observed voxel's state.
+// 3. Each (x, y) column culled to its z-interval. Along a column the
+//    camera-frame point is affine in the z index, p(z) = a + z b, so every
+//    test that admits a voxel is a linear inequality in z: p_z within the
+//    sensor range, p_z at most d_max + max_dist_neg (d_max the frame's
+//    deepest reading: no voxel behind it passes d_new >= -max_dist_neg),
+//    and the pixel tests multiplied out by p_z > 0 (u_f > -1 and u_f < W:
+//    the C++ cast truncates toward zero). column_interval() intersects them
+//    in double, each relaxed by a bound on the float32 rounding of the
+//    per-voxel expression (and the pixel tests by kPixelSlack pixels),
+//    rounds outwards and widens by one voxel each end. Inside the interval
+//    the exact per-voxel test decides; the interval only culls. The plain
+//    version of the cull is ops/fusion_kernel.py::dense_column_intervals.
+// 4. Launch. Warp w of the n_warps = ceil(n_cols / 32) takes the 32
+//    columns w, w + n_warps, w + 2 n_warps, ... (the layout is
+//    (x*yres + y)*zres + z, so they lie 1/32 of the grid apart): long
+//    columns cluster where the view runs along z, and spreading a warp's
+//    columns over the grid evens out the warps' work. Each lane computes
+//    one column's interval, a warp scan lays the columns' V-voxel groups
+//    end to end, and the lanes walk them 32 at a time: a column's groups
+//    go to neighbouring lanes, so the 16-byte accesses coalesce, and an
+//    empty column costs its lane nothing past the interval. V = 4 when
+//    zres is a multiple of 4 and every state pointer is 16-byte aligned,
+//    else 1. Offsets are 64-bit: a 1024 x 1024 x 704 grid with color has
+//    more than 2^31 color entries.
+// 5. d_max comes from depth_max_kernel, launched first on the same stream
+//    into a 4-byte buffer: no host sync. NaN readings are skipped; an
+//    all-NaN frame gives -inf and every interval empty; a +inf reading
+//    would observe every voxel in front of it, and lifts the far limit.
+//    Its plain version is ops/fusion_kernel.py::depth_max. d_max computed
+//    by torch instead (nan_to_num and amax, passed in as a device float)
+//    made the wrapper 0.005 ms slower on an H100 80GB HBM3 at 700 W (0.0717
+//    against 0.0663-0.0669 ms, chip_smoke.py phase 13), so the reduction
+//    stays here. With col_range given, each column's interval is written there:
+//    the card tests and chip_smoke.py read the cull back and hold it
+//    against its plain version, dense_column_intervals, which takes
+//    depth_max, column for column.
 
-constexpr int kDenseThreads = 256;
+constexpr int kDenseThreads = 128;
+constexpr int kDenseWarps = kDenseThreads / 32;
+constexpr double kPixelSlack = 1.0;  // pixels added to each side of the image
+constexpr double kRoundingSlack = 1e-5;  // of the transform's magnitude, in metres
 
+// A float as an unsigned key whose order is the float order (NaN aside).
+__device__ __forceinline__ unsigned order_key(float f) {
+  const unsigned u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float from_order_key(unsigned k) {
+  if (k == 0u) return -INFINITY;  // no reading
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// The largest reading of the depth image, NaN skipped (fmaxf drops NaN),
+// as an order key atomically maxed into *key (zeroed before the launch).
+__global__ void __launch_bounds__(256) depth_max_kernel(const float* __restrict__ depth, int n,
+                                                        unsigned* __restrict__ key) {
+  float acc = -INFINITY;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x)
+    acc = fmaxf(acc, depth[i]);
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) acc = fmaxf(acc, __shfl_xor_sync(0xffffffffu, acc, s));
+  if ((threadIdx.x & 31) == 0) atomicMax(key, order_key(acc));
+}
+
+// {z : alpha + beta z >= 0} intersected into the real interval [lo, hi].
+__device__ __forceinline__ void clip_ge(double alpha, double beta, double& lo, double& hi) {
+  if (beta > 0.0) {
+    lo = fmax(lo, -alpha / beta);
+  } else if (beta < 0.0) {
+    hi = fmin(hi, -alpha / beta);
+  } else if (alpha < 0.0) {
+    hi = -INFINITY;
+  }
+}
+
+struct ZRange {
+  int lo, hi;  // voxel indices, inclusive; empty when lo > hi
+};
+
+// The z-interval of column (gx, gy) that holds every voxel the frame can
+// observe (see the design note, item 3). pose: pose_inv rows 0..2.
+__device__ ZRange column_interval(const FusionParams& p, const float* m, int gx, int gy,
+                                  float dmax) {
+  if (!(dmax > -INFINITY)) return {1, 0};  // no reading in the frame
+  // the column's cell centre as project() computes it (exact in double)
+  const double cx = ((float)gx + 0.5f) * p.cell_x - p.half_x;
+  const double cy = ((float)gy + 0.5f) * p.cell_y - p.half_y;
+  const double cz0 = 0.5 * (double)p.cell_z - (double)p.half_z;  // plane z = 0
+  const double hz = (double)p.half_z + (double)p.cell_z;
+  double a[3], b[3], e[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const double m0 = m[4 * i], m1 = m[4 * i + 1], m2 = m[4 * i + 2], m3 = m[4 * i + 3];
+    a[i] = m0 * cx + m1 * cy + m2 * cz0 + m3;
+    b[i] = m2 * (double)p.cell_z;
+    // far above the float32 rounding of project()'s transform (a few ulp)
+    e[i] = kRoundingSlack * (fabs(m0 * cx) + fabs(m1 * cy) + fabs(m2) * hz + fabs(m3)) + 1e-9;
+  }
+  double lo = 0.0, hi = (double)(p.zres - 1);
+  const double z_near = (double)p.min_dist - e[2];
+  clip_ge(a[2] - z_near, b[2], lo, hi);                             // p_z >= min_dist
+  clip_ge((double)p.max_dist + e[2] - a[2], -b[2], lo, hi);       // p_z <= max_dist
+  const double z_far = (double)dmax + (double)p.max_dist_neg;
+  if (z_far < INFINITY)                                             // p_z <= d_max + neg
+    clip_ge(z_far + 1e-6 * fabs(z_far) + e[2] - a[2], -b[2], lo, hi);
+  // the pixel tests multiplied out by p_z, where p_z >= z_near > 0 and the
+  // pixel's rounding error is well inside kPixelSlack
+  const double W = p.width, H = p.height, fx = p.fx, fy = p.fy, pcx = p.pcx, pcy = p.pcy;
+  const double err_u = (fabs(fx) * e[0] + (W + fabs(pcx) + 2.0) * e[2]) / z_near;
+  const double err_v = (fabs(fy) * e[1] + (H + fabs(pcy) + 2.0) * e[2]) / z_near;
+  if (z_near > 0.0 && err_u <= 0.5 * kPixelSlack && err_v <= 0.5 * kPixelSlack) {
+    const double u_lo = pcx + 1.0 + kPixelSlack, u_hi = W + kPixelSlack - pcx;
+    const double v_lo = pcy + 1.0 + kPixelSlack, v_hi = H + kPixelSlack - pcy;
+    clip_ge(fx * a[0] + u_lo * a[2], fx * b[0] + u_lo * b[2], lo, hi);  // u_f > -1
+    clip_ge(u_hi * a[2] - fx * a[0], u_hi * b[2] - fx * b[0], lo, hi);  // u_f < W
+    clip_ge(fy * a[1] + v_lo * a[2], fy * b[1] + v_lo * b[2], lo, hi);  // v_f > -1
+    clip_ge(v_hi * a[2] - fy * a[1], v_hi * b[2] - fy * b[1], lo, hi);  // v_f < H
+  }
+  if (!(lo <= hi)) return {1, 0};
+  // lo and hi lie in [0, zres - 1] here: round outwards, one voxel more
+  return {max((int)floor(lo) - 1, 0), min((int)ceil(hi) + 1, p.zres - 1)};
+}
+
+// The V voxels of column c (global x gx, y gy) from z = gz0: projected and
+// tested first, their state loaded, fused and stored only when one of them
+// is observed.
 template <int V, int CM>
-__global__ void __launch_bounds__(kDenseThreads)
-fuse_dense_kernel(FusionParams p, int x0, long long n_vox,
-                  const float* __restrict__ pose,  // pose_inv rows 0..2, 12 floats
-                  const float* __restrict__ depth, const float* __restrict__ rgb,
-                  const float* __restrict__ sdf, const float* __restrict__ weight,
-                  const float* __restrict__ M, const int* __restrict__ nsample,
-                  const float* __restrict__ color, float* __restrict__ sdf_out,
-                  float* __restrict__ weight_out, float* __restrict__ M_out,
-                  int* __restrict__ nsample_out, float* __restrict__ color_out) {
+__device__ __forceinline__ void fuse_dense_group(
+    const FusionParams& p, const float* m, long long c, int gx, int gy, int gz0,
+    const float* __restrict__ depth, const float* __restrict__ rgb, float* __restrict__ sdf,
+    float* __restrict__ weight, float* __restrict__ M, int* __restrict__ nsample,
+    float* __restrict__ color) {
   constexpr int NC = Color<CM>::nc;
   constexpr int NCV = NC > 0 ? NC * V : 1;
-  __shared__ float m[12];
-  const int t = threadIdx.x;
-  if (t < 12) m[t] = pose[t];
-  const long long i0 = ((long long)blockIdx.x * kDenseThreads + t) * V;
-  const bool live = i0 < n_vox;
-
-  // the state first: it does not depend on the projection
-  float d[V], w[V], Mv[V], c[NCV];
-  int n[V];
-  if (live) {
-    if constexpr (V == 4) {
-      const float4 d4 = *reinterpret_cast<const float4*>(sdf + i0);
-      const float4 w4 = *reinterpret_cast<const float4*>(weight + i0);
-      const float4 m4 = *reinterpret_cast<const float4*>(M + i0);
-      const int4 n4 = *reinterpret_cast<const int4*>(nsample + i0);
-      d[0] = d4.x; d[1] = d4.y; d[2] = d4.z; d[3] = d4.w;
-      w[0] = w4.x; w[1] = w4.y; w[2] = w4.z; w[3] = w4.w;
-      Mv[0] = m4.x; Mv[1] = m4.y; Mv[2] = m4.z; Mv[3] = m4.w;
-      n[0] = n4.x; n[1] = n4.y; n[2] = n4.z; n[3] = n4.w;
-#pragma unroll
-      for (int k = 0; k < NC; ++k) {
-        const float4 c4 = reinterpret_cast<const float4*>(color + i0 * NC)[k];
-        c[4 * k] = c4.x; c[4 * k + 1] = c4.y; c[4 * k + 2] = c4.z; c[4 * k + 3] = c4.w;
-      }
-    } else {
-      d[0] = sdf[i0];
-      w[0] = weight[i0];
-      Mv[0] = M[i0];
-      n[0] = nsample[i0];
-#pragma unroll
-      for (int k = 0; k < NC; ++k) c[k] = color[i0 * NC + k];
-    }
-  }
-  __syncthreads();  // the pose
-  if (!live) return;
-
-  // the first voxel's (x, y, z); the others follow in z (V = 4 only when
-  // zres is a multiple of 4, so they never leave the z run)
-  const long long row = i0 / p.zres;
-  const int gz = (int)(i0 - row * p.zres);
-  const int lx = (int)(row / p.yres);
-  const int gy = (int)(row - (long long)lx * p.yres);
   Projection o[V];
-  float z[V], r[V], g[V], b[V];
+  float z[V];
+  bool obs[V];
 #pragma unroll
-  for (int k = 0; k < V; ++k) o[k] = project(p, m, x0 + lx, gy, gz + k);
-  // the depth and rgb pixels of all V voxels, loaded together
+  for (int k = 0; k < V; ++k) o[k] = project(p, m, gx, gy, gz0 + k);
+#pragma unroll
+  for (int k = 0; k < V; ++k) z[k] = o[k].valid ? depth[o[k].pix] : 0.0f;
+  bool any = false;
 #pragma unroll
   for (int k = 0; k < V; ++k) {
-    z[k] = o[k].valid ? depth[o[k].pix] : 0.0f;
+    obs[k] = observed(p, o[k], z[k]);
+    any |= obs[k];
+  }
+  if (!any) return;
+
+  const long long i0 = c * p.zres + gz0;
+  float r[V], g[V], b[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
     r[k] = g[k] = b[k] = 0.0f;
-    if (NC > 0 && o[k].valid) {
+    if (NC > 0 && obs[k]) {
       const float* px = rgb + 3 * o[k].pix;
       r[k] = px[0];
       g[k] = px[1];
       b[k] = px[2];
     }
   }
-#pragma unroll
-  for (int k = 0; k < V; ++k)
-    fuse_voxel<CM>(p, o[k], z[k], r[k], g[k], b[k], d[k], w[k], Mv[k], n[k],
-                   c + (NC > 0 ? k * NC : 0));
-
-  // every voxel is written: the outputs are fresh tensors
+  float d[V], w[V], Mv[V], cl[NCV];
+  int n[V];
   if constexpr (V == 4) {
-    *reinterpret_cast<float4*>(sdf_out + i0) = make_float4(d[0], d[1], d[2], d[3]);
-    *reinterpret_cast<float4*>(weight_out + i0) = make_float4(w[0], w[1], w[2], w[3]);
-    *reinterpret_cast<float4*>(M_out + i0) = make_float4(Mv[0], Mv[1], Mv[2], Mv[3]);
-    *reinterpret_cast<int4*>(nsample_out + i0) = make_int4(n[0], n[1], n[2], n[3]);
+    const float4 d4 = *reinterpret_cast<const float4*>(sdf + i0);
+    const float4 w4 = *reinterpret_cast<const float4*>(weight + i0);
+    const float4 m4 = *reinterpret_cast<const float4*>(M + i0);
+    const int4 n4 = *reinterpret_cast<const int4*>(nsample + i0);
+    d[0] = d4.x; d[1] = d4.y; d[2] = d4.z; d[3] = d4.w;
+    w[0] = w4.x; w[1] = w4.y; w[2] = w4.z; w[3] = w4.w;
+    Mv[0] = m4.x; Mv[1] = m4.y; Mv[2] = m4.z; Mv[3] = m4.w;
+    n[0] = n4.x; n[1] = n4.y; n[2] = n4.z; n[3] = n4.w;
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const float4 c4 = reinterpret_cast<const float4*>(color + i0 * NC)[k];
+      cl[4 * k] = c4.x; cl[4 * k + 1] = c4.y; cl[4 * k + 2] = c4.z; cl[4 * k + 3] = c4.w;
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      fuse_voxel<CM>(p, o[k], z[k], r[k], g[k], b[k], d[k], w[k], Mv[k], n[k],
+                     cl + (NC > 0 ? k * NC : 0));
+    *reinterpret_cast<float4*>(sdf + i0) = make_float4(d[0], d[1], d[2], d[3]);
+    *reinterpret_cast<float4*>(weight + i0) = make_float4(w[0], w[1], w[2], w[3]);
+    *reinterpret_cast<float4*>(M + i0) = make_float4(Mv[0], Mv[1], Mv[2], Mv[3]);
+    *reinterpret_cast<int4*>(nsample + i0) = make_int4(n[0], n[1], n[2], n[3]);
 #pragma unroll
     for (int k = 0; k < NC; ++k)
-      reinterpret_cast<float4*>(color_out + i0 * NC)[k] =
-          make_float4(c[4 * k], c[4 * k + 1], c[4 * k + 2], c[4 * k + 3]);
+      reinterpret_cast<float4*>(color + i0 * NC)[k] =
+          make_float4(cl[4 * k], cl[4 * k + 1], cl[4 * k + 2], cl[4 * k + 3]);
   } else {
-    sdf_out[i0] = d[0];
-    weight_out[i0] = w[0];
-    M_out[i0] = Mv[0];
-    nsample_out[i0] = n[0];
+    d[0] = sdf[i0];
+    w[0] = weight[i0];
+    Mv[0] = M[i0];
+    n[0] = nsample[i0];
 #pragma unroll
-    for (int k = 0; k < NC; ++k) color_out[i0 * NC + k] = c[k];
+    for (int k = 0; k < NC; ++k) cl[k] = color[i0 * NC + k];
+    fuse_voxel<CM>(p, o[0], z[0], r[0], g[0], b[0], d[0], w[0], Mv[0], n[0], cl);
+    sdf[i0] = d[0];
+    weight[i0] = w[0];
+    M[i0] = Mv[0];
+    nsample[i0] = n[0];
+#pragma unroll
+    for (int k = 0; k < NC; ++k) color[i0 * NC + k] = cl[k];
+  }
+}
+
+template <int V, int CM>
+__global__ void __launch_bounds__(kDenseThreads)
+fuse_dense_kernel(FusionParams p, int x0, long long n_cols,
+                  const float* __restrict__ pose,  // pose_inv rows 0..2, 12 floats
+                  const unsigned* __restrict__ dmax_key, const float* __restrict__ depth,
+                  const float* __restrict__ rgb, float* __restrict__ sdf,
+                  float* __restrict__ weight, float* __restrict__ M,
+                  int* __restrict__ nsample, float* __restrict__ color,
+                  int* __restrict__ col_range) {
+  __shared__ float m[12];
+  __shared__ int ends[kDenseWarps][32];   // inclusive prefix sums of the groups
+  __shared__ int first[kDenseWarps][32];  // each column's first group
+  const int t = threadIdx.x, lane = t & 31, wi = t >> 5;
+  if (t < 12) m[t] = pose[t];
+  __syncthreads();  // the pose
+  const float dmax = from_order_key(*dmax_key);
+  const long long n_warps = (n_cols + 31) / 32;
+  const long long w = (long long)blockIdx.x * kDenseWarps + wi;
+  if (w >= n_warps) return;  // the whole warp
+
+  const long long col = w + lane * n_warps;  // the lane's column
+  int g_first = 0, count = 0;
+  if (col < n_cols) {
+    const int lx = (int)(col / p.yres);
+    const ZRange zr = column_interval(p, m, x0 + lx, (int)(col - (long long)lx * p.yres), dmax);
+    if (col_range != nullptr) {
+      col_range[2 * col] = zr.lo;
+      col_range[2 * col + 1] = zr.hi;
+    }
+    if (zr.lo <= zr.hi) {
+      g_first = zr.lo / V;
+      count = zr.hi / V - g_first + 1;
+    }
+  }
+  int end = count;
+#pragma unroll
+  for (int s = 1; s < 32; s <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, end, s);
+    if (lane >= s) end += v;
+  }
+  ends[wi][lane] = end;
+  first[wi][lane] = g_first;
+  __syncwarp();
+  const int total = __shfl_sync(0xffffffffu, end, 31);
+  for (int item = lane; item < total; item += 32) {
+    // the column j of the item: the number of columns whose groups end at
+    // or before it
+    int j = 0;
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1)
+      if (ends[wi][j + s - 1] <= item) j += s;
+    const int g = first[wi][j] + item - (j > 0 ? ends[wi][j - 1] : 0);
+    const long long c = w + j * n_warps;
+    const int lx = (int)(c / p.yres);
+    fuse_dense_group<V, CM>(p, m, c, x0 + lx, (int)(c - (long long)lx * p.yres), g * V, depth,
+                            rgb, sdf, weight, M, nsample, color);
   }
 }
 
 static bool aligned16(const void* ptr) { return ptr == nullptr || (uintptr_t)ptr % 16 == 0; }
 
 // The slab holds planes [x0, x0 + nx) of the params' xres x yres x zres
-// grid. rgb, color and color_out are null when color_mode is kNone.
+// grid; its state and color are updated in place. rgb and color are null
+// when color_mode is kNone. dmax_key is a 4-byte device buffer for the
+// frame's deepest reading (overwritten). col_range, int32 [nx * yres, 2] or
+// null, receives each column's z-interval [lo, hi] (lo > hi where empty).
 extern "C" int tsdf_fuse_dense(const FusionParams* params, int x0, int nx, const void* pose,
-                               const void* depth, const void* rgb, const void* sdf,
-                               const void* weight, const void* M, const void* nsample,
-                               const void* color, void* sdf_out, void* weight_out,
-                               void* M_out, void* nsample_out, void* color_out,
-                               void* stream) {
+                               void* dmax_key, const void* depth, const void* rgb, void* sdf,
+                               void* weight, void* M, void* nsample, void* color,
+                               void* col_range, void* stream) {
   const FusionParams& p = *params;
-  const long long n_vox = (long long)nx * p.yres * p.zres;
-  if (n_vox > 0) {
+  const long long n_cols = (long long)nx * p.yres;
+  if (n_cols > 0 && p.zres > 0) {
     cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err = cudaMemsetAsync(dmax_key, 0, sizeof(unsigned), s);
+    if (err != cudaSuccess) return (int)err;
+    const int n_pix = p.width * p.height;
+    const int pix_blocks = n_pix > 256 * 132 ? 132 : (n_pix + 255) / 256 + (n_pix == 0);
+    depth_max_kernel<<<pix_blocks, 256, 0, s>>>((const float*)depth, n_pix, (unsigned*)dmax_key);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
     const bool vec = p.zres % 4 == 0 && aligned16(sdf) && aligned16(weight) && aligned16(M) &&
-                     aligned16(nsample) && aligned16(color) && aligned16(sdf_out) &&
-                     aligned16(weight_out) && aligned16(M_out) && aligned16(nsample_out) &&
-                     aligned16(color_out);
-    const long long per_block = (long long)kDenseThreads * (vec ? 4 : 1);
-    const unsigned n_blocks = (unsigned)((n_vox + per_block - 1) / per_block);
-#define TSDF_DENSE(V, CM)                                                              \
-  fuse_dense_kernel<V, CM><<<n_blocks, kDenseThreads, 0, s>>>(                          \
-      p, x0, n_vox, (const float*)pose, (const float*)depth, (const float*)rgb,         \
-      (const float*)sdf, (const float*)weight, (const float*)M, (const int*)nsample,    \
-      (const float*)color, (float*)sdf_out, (float*)weight_out, (float*)M_out,          \
-      (int*)nsample_out, (float*)color_out)
+                     aligned16(nsample) && aligned16(color);
+    const long long n_warps = (n_cols + 31) / 32;
+    const unsigned n_blocks = (unsigned)((n_warps + kDenseWarps - 1) / kDenseWarps);
+#define TSDF_DENSE(V, CM)                                                                  \
+  fuse_dense_kernel<V, CM><<<n_blocks, kDenseThreads, 0, s>>>(                              \
+      p, x0, n_cols, (const float*)pose, (const unsigned*)dmax_key, (const float*)depth,    \
+      (const float*)rgb, (float*)sdf, (float*)weight, (float*)M, (int*)nsample, (float*)color, \
+      (int*)col_range)
 #define TSDF_DENSE_VEC(CM)      \
   if (vec) TSDF_DENSE(4, CM);   \
   else TSDF_DENSE(1, CM)

@@ -14,11 +14,14 @@ Per finest voxel:
                                              octree.cpp:153-163
   * Welford variance accumulator M, nsample  octree.cpp:160-161
 
-Dense :func:`integrate` is functional (it returns new tensors) so that
-torch autograd flows through it with respect to depth and pose. On the
-card it runs the dense fusion kernel (``csrc/fusion.cu``, the counterpart
-of the JAX package's jitted, XLA-fused ``integrate``); on the CPU its plain
-version :func:`integrate_slab_plain`.
+Dense :func:`integrate` consumes its volume, as the JAX package's jitted
+``integrate`` donates it (``donate_argnums=(0,)``): the caller uses the
+returned volume. On the card it runs the dense fusion kernel
+(``csrc/fusion.cu``), which updates the volume's tensors in place; where
+an input requires grad it runs the kernel on a copy instead, so that torch
+autograd flows through it with respect to depth, pose, rgb and the old
+volume. On the CPU it runs the plain version :func:`integrate_slab_plain`,
+which returns new tensors.
 """
 
 from __future__ import annotations
@@ -121,7 +124,10 @@ def integrate(vol: TSDFVolume, depth, pose, rgb: Optional[torch.Tensor] = None, 
     """Fuse one registered depth frame into the dense volume.
 
     Args:
-      vol: current volume state (not modified; a new volume is returned).
+      vol: current volume state, donated: use the returned volume. On the
+        card without autograd its tensors are updated in place and
+        returned; the plain route and the autograd route return new
+        tensors and leave vol as it was.
       depth: [H, W] float32 depth in meters, NaN where missing.
       pose: [4, 4] camera-to-volume transform.
       rgb: optional [H, W, 3] float32 (0..255) color image.
@@ -139,21 +145,30 @@ def integrate_slab(vol: TSDFVolume, depth, pose, rgb: Optional[torch.Tensor] = N
     ``parallel.sharding``); voxel centres and the coarse frustum cells are
     those of the slab's global indices.
 
-    Differentiable with respect to depth, pose, rgb and the volume's float
-    tensors through :class:`_IntegrateSlab`: the forward runs the kernel
-    (``fusion_kernel.fuse_dense``) or :func:`integrate_slab_plain`, the
-    backward recomputes the plain version under autograd. use_kernel: as
-    in :func:`integrate`."""
+    vol is donated, as in :func:`integrate`. On the kernel route with grad
+    mode off or no input requiring grad, ``fusion_kernel.fuse_dense``
+    updates vol's tensors in place and returns them. Otherwise the frame is
+    differentiable with respect to depth, pose, rgb and the volume's float
+    tensors through :class:`_IntegrateSlab`: the forward runs the kernel on
+    a copy of the state or runs :func:`integrate_slab_plain`, the backward
+    recomputes the plain version under autograd, and vol stays as it was.
+    use_kernel: as in :func:`integrate`."""
     dev = vol.device
     kernel = resolve_use_kernel(use_kernel, dev)
     depth = torch.as_tensor(depth, dtype=torch.float32, device=dev)
     pose = torch.as_tensor(pose, dtype=torch.float32, device=dev)
     with_color = vol.color is not None and rgb is not None
-    if with_color:
-        rgb = torch.as_tensor(rgb, dtype=torch.float32, device=dev)
+    rgb = torch.as_tensor(rgb, dtype=torch.float32, device=dev) if with_color else None
+    color = vol.color if with_color else None
+    if kernel and not (torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (depth, pose, rgb, vol.sdf, vol.weight, vol.M, color))):
+        from .fusion_kernel import fuse_dense
+
+        return fuse_dense(vol, depth, pose, rgb, x0)
     sdf, weight, M, nsample, color = _IntegrateSlab.apply(
-        depth, pose, rgb if with_color else None, vol.sdf, vol.weight, vol.M, vol.nsample,
-        vol.color if with_color else None, vol.config, vol.global_transform, x0, kernel)
+        depth, pose, rgb, vol.sdf, vol.weight, vol.M, vol.nsample, color, vol.config,
+        vol.global_transform, x0, kernel)
     return TSDFVolume(sdf=sdf, weight=weight, M=M, nsample=nsample,
                       color=color if with_color else vol.color,
                       global_transform=vol.global_transform, config=vol.config)
@@ -164,20 +179,23 @@ class _IntegrateSlab(torch.autograd.Function):
     None) of the slab, differentiable with respect to depth, pose, rgb and
     the volume's float tensors.
 
-    Forward: the dense fusion kernel (``fusion_kernel.fuse_dense``, which
-    runs :func:`integrate_slab_plain` on CPU tensors) or the plain version,
-    without autograd. Backward: :func:`integrate_slab_plain` recomputed from
-    the saved inputs under autograd, as ``raycast_kernel._MarchRays``
-    recomputes the refinement: the plain version is the function the
-    kernel computes, so its gradient is the kernel's."""
+    Forward: the dense fusion kernel (``fusion_kernel.fuse_dense``) on
+    copies of the state, since it updates in place and the backward needs
+    the inputs as they were, or the plain version, without autograd.
+    Backward: :func:`integrate_slab_plain` recomputed from the saved inputs
+    under autograd, as ``raycast_kernel._MarchRays`` recomputes the
+    refinement: the plain version is the function the kernel computes, so
+    its gradient is the kernel's."""
 
     @staticmethod
     def forward(ctx, depth, pose, rgb, sdf, weight, M, nsample, color, cfg, global_transform,
                 x0, kernel):
         from .fusion_kernel import fuse_dense
 
-        vol = TSDFVolume(sdf=sdf, weight=weight, M=M, nsample=nsample, color=color,
-                         global_transform=global_transform, config=cfg)
+        state = (sdf, weight, M, nsample, color)
+        if kernel:
+            state = tuple(None if t is None else t.clone() for t in state)
+        vol = TSDFVolume(*state, global_transform=global_transform, config=cfg)
         out = (fuse_dense if kernel else integrate_slab_plain)(vol, depth, pose, rgb, x0)
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(depth, pose, rgb, sdf, weight, M, nsample, color)

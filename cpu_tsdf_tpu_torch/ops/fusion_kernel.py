@@ -17,10 +17,14 @@ State rows are [C, B^3] (bricks of any even size B, the voxel order
 (lx*B+ly)*B+lz), color rows [C, B^3, nc].
 
 :func:`fuse_dense` fuses one frame into a dense volume (or an X-slab of
-one) in one kernel pass, into fresh tensors: the counterpart of the JAX
-package's jitted, XLA-fused dense ``integrate`` (not a Pallas kernel). Its
-plain version is ``ops.fusion.integrate_slab_plain``; both kernels share
-the per-voxel device functions of ``csrc/fusion.cu``.
+one) in one kernel launch, in place: the counterpart of the JAX package's
+jitted, XLA-fused dense ``integrate`` (not a Pallas kernel), whose volume
+is donated. Its plain version is ``ops.fusion.integrate_slab_plain``; both
+kernels share the per-voxel device functions of ``csrc/fusion.cu``. The
+kernel culls each (x, y) column to the z-interval of voxels the frame can
+observe; :func:`dense_column_intervals` is the plain version of that cull,
+and :func:`dense_candidates` counts, voxel by voxel, the voxels any fusion
+of the frame must project and test.
 """
 
 from __future__ import annotations
@@ -192,22 +196,45 @@ def fuse_bricks(cfg: TSDFConfig, rows, pose_inv, depth, sdf, weight, M, nsample,
     launches["fusion"] += 1
 
 
-def fuse_dense(vol: TSDFVolume, depth, pose, rgb=None, x0: int = 0) -> TSDFVolume:
+def fuse_dense(vol: TSDFVolume, depth, pose, rgb=None, x0: int = 0, *,
+               intervals=None) -> TSDFVolume:
     """One frame fused into the dense X-slab [x0, x0 + n) that vol's
-    [n, yres, zres] tensors hold: a new volume of fresh tensors (the color
-    tensor is vol's own when there is no rgb or no color). depth [H, W],
+    [n, yres, zres] tensors hold. vol is donated, as the JAX package's
+    ``integrate`` donates its volume: use the returned one. depth [H, W],
     pose [4, 4] camera-to-volume, rgb [H, W, 3] (0..255, truncated here).
 
-    On CPU tensors this is ``ops.fusion.integrate_slab_plain``; on CUDA
-    tensors it launches csrc/fusion.cu's dense kernel once and raises on
-    anything the kernel does not take. No autograd here: see
-    ``ops.fusion.integrate_slab``."""
+    On CPU tensors this is ``ops.fusion.integrate_slab_plain``, which
+    returns fresh tensors. On CUDA tensors it launches csrc/fusion.cu's
+    dense kernel once: vol's state (and, with rgb, its color) is updated in
+    place, only the voxels the frame observes are read or written, and
+    vol's tensors are returned with their autograd version counters moved
+    on (a tensor autograd saved earlier then raises in its backward). It
+    raises on anything the kernel does not take, and on tensors that
+    require grad while grad mode is on: ``ops.fusion.integrate_slab`` is
+    the differentiable route.
+
+    intervals, an int32 [n * yres, 2] tensor on vol's device, receives the
+    z-interval [lo, hi] of each column (x, y), at row x * yres + y (lo > hi
+    where empty): on the card the kernel's own cull, on the CPU its plain
+    version :func:`dense_column_intervals`."""
+    cfg, dev = vol.config, vol.device
+    nx = vol.sdf.shape[0]
+    if intervals is not None:
+        ok = (intervals.dtype == torch.int32 and intervals.device == dev
+              and intervals.shape == (nx * cfg.yres, 2)
+              and intervals.is_contiguous())
+        if not ok:
+            raise ValueError(f"fuse_dense: intervals must be a contiguous int32 "
+                             f"[{nx * cfg.yres}, 2] tensor on {dev}")
     if vol.device.type == "cpu":
+        if intervals is not None:
+            pose_inv = rigid_inverse(torch.as_tensor(pose, dtype=torch.float32))
+            lo, hi = dense_column_intervals(
+                cfg, pose_inv, torch.as_tensor(depth, dtype=torch.float32), x0, nx)
+            intervals.copy_(torch.stack([lo.reshape(-1), hi.reshape(-1)], 1))
         return integrate_slab_plain(vol, depth, pose, rgb, x0)
     from .._build import check, check_tensor, function, stream_ptr
 
-    cfg, dev = vol.config, vol.device
-    nx = vol.sdf.shape[0]
     if not 0 <= x0 <= x0 + nx <= cfg.xres:
         raise ValueError(f"fuse_dense: planes [{x0}, {x0 + nx}) are not in the grid's "
                          f"{cfg.xres}")
@@ -217,6 +244,10 @@ def fuse_dense(vol: TSDFVolume, depth, pose, rgb=None, x0: int = 0) -> TSDFVolum
     with_color = vol.color is not None and rgb is not None
     if with_color and cfg.color_mode not in COLOR_CODES:
         raise ValueError(f"fuse_dense: color mode {cfg.color_mode!r} has no color channels")
+    state = [vol.sdf, vol.weight, vol.M, vol.nsample] + ([vol.color] if with_color else [])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in state):
+        raise ValueError("fuse_dense updates the volume in place; a volume that requires "
+                         "grad goes through ops.fusion.integrate_slab")
     shape = (nx, cfg.yres, cfg.zres)
     checks = [("depth", depth, torch.float32, (H, W)),
               ("sdf", vol.sdf, torch.float32, shape),
@@ -229,25 +260,143 @@ def fuse_dense(vol: TSDFVolume, depth, pose, rgb=None, x0: int = 0) -> TSDFVolum
                    ("rgb", rgb, torch.float32, (H, W, 3))]
     for what, t, dt, want in checks:
         check_tensor(f"fuse_dense: {what}", t, dt, want, dev)
-    out = [torch.empty_like(t) for t in (vol.sdf, vol.weight, vol.M, vol.nsample)]
-    color = torch.empty_like(vol.color) if with_color else vol.color
     pose12 = pose_inv[:3].contiguous()
+    dmax_key = torch.empty((), dtype=torch.int32, device=dev)  # the frame's deepest reading
     fn = function("fusion", "tsdf_fuse_dense",
                   [ctypes.POINTER(FusionParams), ctypes.c_int, ctypes.c_int]
-                  + [ctypes.c_void_p] * 14)
+                  + [ctypes.c_void_p] * 11)
     params = fusion_params(cfg, with_color)
 
     def ptr(t):
         return t.data_ptr() if with_color else None
 
-    err = fn(ctypes.byref(params), x0, nx, pose12.data_ptr(), depth.data_ptr(), ptr(rgb),
-             vol.sdf.data_ptr(), vol.weight.data_ptr(), vol.M.data_ptr(),
-             vol.nsample.data_ptr(), ptr(vol.color), *(t.data_ptr() for t in out), ptr(color),
-             stream_ptr(dev))
+    err = fn(ctypes.byref(params), x0, nx, pose12.data_ptr(), dmax_key.data_ptr(),
+             depth.data_ptr(), ptr(rgb), vol.sdf.data_ptr(), vol.weight.data_ptr(),
+             vol.M.data_ptr(), vol.nsample.data_ptr(), ptr(vol.color),
+             None if intervals is None else intervals.data_ptr(), stream_ptr(dev))
     check(err, "fuse_dense")
     launches["dense_fusion"] += 1
-    return TSDFVolume(sdf=out[0], weight=out[1], M=out[2], nsample=out[3], color=color,
-                      global_transform=vol.global_transform, config=cfg)
+    for t in state:
+        torch.autograd.graph.increment_version(t)
+    return vol
+
+
+# Float64 constants of the cull in csrc/fusion.cu (kPixelSlack,
+# kRoundingSlack): pixels added to each side of the image, and the bound on
+# the float32 rounding of a voxel's camera-frame coordinate, relative to
+# the magnitude of its transform's terms.
+PIXEL_SLACK = 1.0
+ROUNDING_SLACK = 1e-5
+
+
+def depth_max(depth):
+    """The frame's deepest reading, NaN skipped (-inf for an all-NaN frame),
+    as a 0-dim float32 tensor on depth's device: csrc/fusion.cu's
+    depth_max_kernel. A voxel behind it by more than max_dist_neg is
+    observed by no pixel."""
+    return torch.where(torch.isnan(depth), float("-inf"), depth).amax()
+
+
+def _clip_ge(alpha, beta, lo, hi):
+    """{z : alpha + beta z >= 0} intersected into the real intervals [lo, hi]
+    (float64 tensors of one shape): csrc/fusion.cu's clip_ge."""
+    root = -alpha / beta
+    lo = torch.where((beta > 0) & ~torch.isnan(root), torch.maximum(lo, root), lo)
+    hi = torch.where((beta < 0) & ~torch.isnan(root), torch.minimum(hi, root), hi)
+    return lo, torch.where((beta == 0) & (alpha < 0), float("-inf"), hi)
+
+
+def dense_column_intervals(cfg: TSDFConfig, pose_inv, depth, x0: int = 0, nx=None):
+    """Plain version of the dense kernel's column cull (csrc/fusion.cu,
+    column_interval): for each column (x, y) of the X-slab [x0, x0 + nx),
+    the voxel indices [lo, hi] (int64 [nx, yres] each; empty where lo > hi)
+    that hold every voxel the frame can observe. pose_inv [4, 4] volume ->
+    camera, depth [H, W].
+
+    Along a column the camera-frame point is affine in z, p(z) = a + z b,
+    and each test that admits a voxel is linear in z: the sensor range,
+    p_z <= d_max + max_dist_neg (:func:`depth_max`), and the pixel tests
+    u_f > -1, u_f < W (and v) multiplied out by p_z > 0. Each is relaxed
+    by far more than the float32 rounding of the voxel's own projection
+    (and the pixel tests by PIXEL_SLACK pixels); the intersection is
+    rounded outwards and widened by one voxel each end. Computed in
+    float64 from the float32 constants the kernel is given."""
+    nx = cfg.xres - x0 if nx is None else nx
+    dev = depth.device
+    f64 = torch.float64
+
+    def f32(v):  # a constant as the kernel's FusionParams holds it
+        return float(torch.tensor(v, dtype=torch.float32))
+
+    cell = [f32(cfg.xsize / cfg.xres), f32(cfg.ysize / cfg.yres), f32(cfg.zsize / cfg.zres)]
+    half = [f32(cfg.xsize / 2), f32(cfg.ysize / 2), f32(cfg.zsize / 2)]
+    gx = torch.arange(x0, x0 + nx, dtype=torch.float32, device=dev)[:, None]
+    gy = torch.arange(cfg.yres, dtype=torch.float32, device=dev)[None, :]
+    cx = ((gx + 0.5) * cell[0] - half[0]).to(f64).expand(nx, cfg.yres)
+    cy = ((gy + 0.5) * cell[1] - half[1]).to(f64).expand(nx, cfg.yres)
+    cz0 = 0.5 * cell[2] - half[2]
+    hz = half[2] + cell[2]
+    m = pose_inv.to(device=dev, dtype=torch.float32).to(f64)
+    a, b, e = [], [], []
+    for i in range(3):
+        a.append(m[i, 0] * cx + m[i, 1] * cy + m[i, 2] * cz0 + m[i, 3])
+        b.append((m[i, 2] * cell[2]).expand(nx, cfg.yres))
+        e.append(ROUNDING_SLACK * (torch.abs(m[i, 0] * cx) + torch.abs(m[i, 1] * cy)
+                                   + torch.abs(m[i, 2]) * hz + torch.abs(m[i, 3])) + 1e-9)
+    lo = torch.zeros((nx, cfg.yres), dtype=f64, device=dev)
+    hi = torch.full((nx, cfg.yres), float(cfg.zres - 1), dtype=f64, device=dev)
+    z_near = f32(cfg.min_sensor_dist) - e[2]
+    lo, hi = _clip_ge(a[2] - z_near, b[2], lo, hi)
+    lo, hi = _clip_ge(f32(cfg.max_sensor_dist) + e[2] - a[2], -b[2], lo, hi)
+    dmax = depth_max(depth.to(torch.float32)).to(f64)
+    z_far = dmax + f32(cfg.max_dist_neg)  # +inf (a +inf reading) clips nothing
+    lo, hi = _clip_ge(z_far + 1e-6 * torch.abs(z_far) + e[2] - a[2], -b[2], lo, hi)
+    W, H = float(cfg.image_width), float(cfg.image_height)
+    fx, fy = f32(cfg.focal_length_x), f32(cfg.focal_length_y)
+    pcx, pcy = f32(cfg.principal_point_x), f32(cfg.principal_point_y)
+    err_u = (abs(fx) * e[0] + (W + abs(pcx) + 2.0) * e[2]) / z_near
+    err_v = (abs(fy) * e[1] + (H + abs(pcy) + 2.0) * e[2]) / z_near
+    pix = (z_near > 0) & (err_u <= 0.5 * PIXEL_SLACK) & (err_v <= 0.5 * PIXEL_SLACK)
+    u_lo, u_hi = pcx + 1.0 + PIXEL_SLACK, W + PIXEL_SLACK - pcx
+    v_lo, v_hi = pcy + 1.0 + PIXEL_SLACK, H + PIXEL_SLACK - pcy
+    plo, phi = lo, hi
+    for alpha, beta in ((fx * a[0] + u_lo * a[2], fx * b[0] + u_lo * b[2]),
+                        (u_hi * a[2] - fx * a[0], u_hi * b[2] - fx * b[0]),
+                        (fy * a[1] + v_lo * a[2], fy * b[1] + v_lo * b[2]),
+                        (v_hi * a[2] - fy * a[1], v_hi * b[2] - fy * b[1])):
+        plo, phi = _clip_ge(alpha, beta, plo, phi)
+    lo, hi = torch.where(pix, plo, lo), torch.where(pix, phi, hi)
+    empty = ~(lo <= hi) | torch.isneginf(dmax)
+    # lo and hi lie in [0, zres - 1] where not empty
+    zl = torch.clamp(torch.floor(lo.clamp(0, cfg.zres - 1)) - 1, min=0).to(torch.int64)
+    zh = torch.clamp(torch.ceil(hi.clamp(0, cfg.zres - 1)) + 1, max=cfg.zres - 1).to(torch.int64)
+    return torch.where(empty, 1, zl), torch.where(empty, 0, zh)
+
+
+def dense_candidates(cfg: TSDFConfig, pose_inv, depth, x0: int = 0, nx=None,
+                     planes: int = 32):
+    """The voxels of the X-slab [x0, x0 + nx) that any fusion of this frame
+    must project and test, counted voxel by voxel (an int64 0-dim tensor):
+    those whose camera-frame centre lies inside the pinhole frustum (its
+    pixel in the image), between min_sensor_dist and max_sensor_dist, with
+    camera z at most the frame's deepest reading plus max_dist_neg. A voxel
+    the frame observes is one of them (its reading is at most the deepest).
+    `planes` x-planes at a time."""
+    from ..geometry import reproject_point, transform_points
+    from ..volume import voxel_centers_grid
+
+    nx = cfg.xres - x0 if nx is None else nx
+    depth = depth.to(torch.float32)
+    far = depth_max(depth) + cfg.max_dist_neg
+    n = torch.zeros((), dtype=torch.int64, device=depth.device)
+    for s in range(x0, x0 + nx, planes):
+        cx, cy, cz = voxel_centers_grid(cfg, device=depth.device,
+                                        x_slab=(s, min(planes, x0 + nx - s)))
+        vx, vy, vz = transform_points(pose_inv, cx, cy, cz)
+        _, _, in_image = reproject_point(cfg, vx, vy, vz)
+        n += (in_image & (vz >= cfg.min_sensor_dist) & (vz <= cfg.max_sensor_dist)
+              & (vz <= far)).sum()
+    return n
 
 
 def bytes_moved(n_live_rows: int, H: int, W: int, nc: int, B: int = 8) -> int:

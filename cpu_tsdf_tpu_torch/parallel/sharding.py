@@ -112,11 +112,13 @@ class _Replicated(torch.autograd.Function):
 
 
 def integrate_sharded(vol: ShardedVolume, depth, pose, rgb=None) -> ShardedVolume:
-    """Fuse one frame into a slab-sharded volume (a new volume; no
-    collective in the forward). Differentiable with respect to depth and
-    pose like ``ops.fusion.integrate``; their gradients are all-reduced over
-    the slabs in the backward, so every rank gets the whole gradient of the
-    sum of the ranks' losses."""
+    """Fuse one frame into a slab-sharded volume (no collective in the
+    forward). vol is donated, as in ``ops.fusion.integrate``: use the
+    returned volume (on the card the kernel updates the slab's tensors in
+    place). Differentiable with respect to depth and pose like
+    ``ops.fusion.integrate``; their gradients are all-reduced over the
+    slabs in the backward, so every rank gets the whole gradient of the sum
+    of the ranks' losses."""
     from ..ops.fusion import integrate_slab
 
     _, _, group = shard_info(vol.mesh)

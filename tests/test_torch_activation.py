@@ -21,6 +21,7 @@ from cpu_tsdf_tpu_torch.config import TSDFConfig
 from cpu_tsdf_tpu_torch.geometry import rigid_inverse
 
 from test_fusion import tilted_pose
+import torch_common  # noqa: F401  (one intra-op thread)
 
 WIDE_FOV = dict(xres=64, yres=64, zres=64, xsize=1.6, ysize=1.6, zsize=1.6,
                 max_dist_pos=0.06, max_dist_neg=0.06,

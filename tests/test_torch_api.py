@@ -26,6 +26,7 @@ from cpu_tsdf_tpu_torch.convert import tsdf_volume_from_arrays
 from cpu_tsdf_tpu_torch.ops import marching_cubes as tmc
 
 from test_fusion import tilted_pose
+import torch_common  # noqa: F401  (one intra-op thread)
 
 # Deliberate renames (ROADMAP, deliberate differences): the JAX name -> the
 # port's. Parameters named pallas_* (tuning of the Pallas kernels) are

@@ -25,6 +25,7 @@ from cpu_tsdf_tpu_torch.io import checkpoint as tckpt
 from cpu_tsdf_tpu_torch.ops import marching_cubes as tmc
 
 from test_torch_bricks import POSES, _scene, assert_volumes_match
+import torch_common  # noqa: F401  (one intra-op thread)
 
 MIN_W = 0.5
 # brick size -> grid resolution

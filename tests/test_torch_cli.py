@@ -24,6 +24,7 @@ from cpu_tsdf_tpu_torch.config import TSDFConfig
 from cpu_tsdf_tpu_torch.io.checkpoint import checkpoint_meta, load_any, save_checkpoint
 
 from test_fusion import tilted_pose
+import torch_common  # noqa: F401  (one intra-op thread)
 
 W, H = 64, 48
 FX = FY = 60.0

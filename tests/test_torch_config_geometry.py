@@ -16,6 +16,7 @@ from cpu_tsdf_tpu_torch import geometry as tg
 from cpu_tsdf_tpu_torch.config import TSDFConfig, snap_resolution_pow2
 
 from test_fusion import tilted_pose
+import torch_common  # noqa: F401  (one intra-op thread)
 
 
 @pytest.mark.parametrize("updates", [

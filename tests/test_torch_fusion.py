@@ -1,6 +1,7 @@
 """Port parity: dense projective fusion (the semantic reference of every
 fusion engine) against the JAX package, with and without color, and its
-gradient with respect to depth and pose.
+gradient with respect to depth and pose; and the plain versions of the
+dense kernel's column cull and of its bound's candidate count.
 
 Tolerances are the JAX package's own between its engines: sdf and M within
 1e-5, weight and nsample exact, color exact for RGB and within 1e-4 for the
@@ -19,8 +20,8 @@ import cpu_tsdf_tpu as J
 from cpu_tsdf_tpu.synthetic import plane_depth, sphere_depth
 from cpu_tsdf_tpu_torch import TSDFConfig, integrate, make_volume
 from cpu_tsdf_tpu_torch.convert import tsdf_volume_from_arrays, tsdf_volume_to_arrays
-
 from test_fusion import tilted_pose
+from torch_common import CULL_CASES, CULL_CFG, cull_frame
 
 POSES = (tilted_pose(), tilted_pose(tx=0.063, ty=0.041, tz=-0.88))
 
@@ -78,8 +79,13 @@ def test_dense_integrate_gradient_matches_jax(small_cfg):
     jgd, jgp = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(depth), jnp.asarray(pose))
     d = torch.from_numpy(depth).requires_grad_()
     p = torch.from_numpy(pose).requires_grad_()
-    loss = integrate(make_volume(cfg, device="cpu"), d, p).sdf.sum()
+    vol = make_volume(cfg, device="cpu")
+    before = {k: getattr(vol, k).clone() for k in ("sdf", "weight", "M", "nsample")}
+    loss = integrate(vol, d, p).sdf.sum()
     gd, gp = torch.autograd.grad(loss, (d, p))
+    # under autograd the donated volume is left as it was
+    for k, t in before.items():
+        assert torch.equal(getattr(vol, k), t), k
     assert torch.isfinite(gd).all() and torch.isfinite(gp).all()
     assert np.abs(np.asarray(jgd)).sum() > 0
     np.testing.assert_allclose(gd.numpy(), np.asarray(jgd), atol=1e-5)
@@ -155,3 +161,70 @@ def test_dense_use_kernel_switch_on_the_cpu(small_cfg):
     for name in ("sdf", "weight", "M", "nsample"):
         assert torch.equal(getattr(s, name), getattr(a, name)[16:40])
     assert int((a.weight > 0).sum()) > 1000
+
+
+def _observed_and_intervals(case):
+    from cpu_tsdf_tpu_torch.geometry import rigid_inverse
+    from cpu_tsdf_tpu_torch.ops import fusion_kernel as fk
+    from cpu_tsdf_tpu_torch.ops.fusion import integrate_slab_plain
+
+    cfg, pose, depth, x0, nx = cull_frame(case)
+    depth, pose = torch.from_numpy(depth), torch.from_numpy(pose)
+    vol = make_volume(cfg, device="cpu")
+    slab = dataclasses.replace(vol, **{k: getattr(vol, k)[x0:x0 + nx].clone()
+                                       for k in ("sdf", "weight", "M", "nsample")})
+    observed = integrate_slab_plain(slab, depth, pose, None, x0).nsample > 0
+    pose_inv = rigid_inverse(pose)
+    lo, hi = fk.dense_column_intervals(cfg, pose_inv, depth, x0, nx)
+    # fuse_dense hands out the same intervals on the CPU
+    iv = torch.empty((nx * cfg.yres, 2), dtype=torch.int32)
+    fk.fuse_dense(slab, depth, pose, None, x0, intervals=iv)
+    assert torch.equal(iv.long(), torch.stack([lo.reshape(-1), hi.reshape(-1)], 1))
+    z = torch.arange(cfg.zres)
+    inside = (z >= lo[..., None]) & (z <= hi[..., None])
+    return observed, inside, fk.dense_candidates(cfg, pose_inv, depth, x0, nx), pose_inv, depth
+
+
+@pytest.mark.parametrize("case", list(CULL_CASES))
+def test_dense_column_intervals_hold_every_observed_voxel(case):
+    """The plain version of the dense kernel's column cull
+    (fusion_kernel.dense_column_intervals, also what fuse_dense's
+    `intervals` receives on the CPU) holds every voxel that
+    integrate_slab_plain observes, and every candidate of the kernel's
+    bound (fusion_kernel.dense_candidates), while culling at least half
+    of the grid; an all-NaN frame empties every column, and a +inf reading
+    (which observes every voxel in front of it) lifts the far limit."""
+    observed, inside, n_cand, _, _ = _observed_and_intervals(case)
+    n_obs, n_in = int(observed.sum()), int(inside.sum())
+    assert not (observed & ~inside).any()
+    assert n_obs <= int(n_cand) <= n_in
+    if case == "all_nan":
+        assert n_in == 0
+    else:
+        assert n_obs > 50
+        assert n_in < observed.numel() // 2
+    if case == "inf_reading":
+        n_finite = int(_observed_and_intervals("tilted")[1].sum())
+        assert n_in > n_finite
+
+
+def test_dense_candidate_count():
+    """fusion_kernel.dense_candidates (the voxels the dense kernel's bound
+    counts as projected and tested) from a fixed pose against a numpy
+    recount in float32: inside the pinhole frustum, within the sensor range,
+    camera z at most the deepest reading plus max_dist_neg."""
+    cfg = CULL_CFG
+    _, inside, n_cand, pose_inv, depth = _observed_and_intervals("tilted")
+    m = pose_inv.numpy()
+    f = np.float32
+    idx = np.arange(48, dtype=f)
+    c = [(idx + f(0.5)) * f(s / 48) - f(s / 2) for s in (cfg.xsize, cfg.ysize, cfg.zsize)]
+    cx, cy, cz = np.meshgrid(*c, indexing="ij")
+    vx, vy, vz = (m[i, 0] * cx + m[i, 1] * cy + m[i, 2] * cz + m[i, 3] for i in range(3))
+    u = np.trunc(np.clip(vx * f(cfg.focal_length_x) / vz + f(cfg.principal_point_x), -2, 41))
+    v = np.trunc(np.clip(vy * f(cfg.focal_length_y) / vz + f(cfg.principal_point_y), -2, 31))
+    far = np.nanmax(depth.numpy()) + f(cfg.max_dist_neg)
+    want = ((vz > 0) & (u >= 0) & (u < 40) & (v >= 0) & (v < 30) & (vz >= f(0.1))
+            & (vz <= f(3.0)) & (vz <= far))
+    assert int(n_cand) == int(want.sum()) > 100
+    assert not (torch.from_numpy(want) & ~inside).any()

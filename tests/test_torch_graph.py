@@ -34,6 +34,7 @@ from cpu_tsdf_tpu_torch.ops.raycast import camera_rays
 
 from test_fusion import tilted_pose
 from test_torch_bricks import JAX_FIELDS, POSES, _scene, assert_volumes_match, jax_arrays
+import torch_common  # noqa: F401  (one intra-op thread)
 
 # ops that read a device value back to the host, or size a tensor from one
 SYNC_OPS = ("aten.nonzero", "aten._local_scalar_dense", "aten.masked_select",

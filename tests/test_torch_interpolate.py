@@ -27,6 +27,7 @@ from cpu_tsdf_tpu_torch.ops import raycast as tr
 
 from test_fusion import tilted_pose
 from test_torch_bricks import jax_arrays
+import torch_common  # noqa: F401  (one intra-op thread)
 
 ATOL = 1e-6
 

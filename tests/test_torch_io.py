@@ -33,6 +33,7 @@ from cpu_tsdf_tpu_torch.io import vol as tvol
 
 from test_fusion import tilted_pose
 from test_torch_bricks import JAX_FIELDS, jax_arrays
+import torch_common  # noqa: F401  (one intra-op thread)
 
 DENSE_FIELDS = ("sdf", "weight", "M", "nsample", "color", "global_transform")
 

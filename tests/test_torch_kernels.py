@@ -26,6 +26,8 @@ from cpu_tsdf_tpu_torch.ops import raycast as rc
 from cpu_tsdf_tpu_torch.ops import raycast_kernel as rk
 from cpu_tsdf_tpu_torch.synthetic import orbit_pose, sphere_depth_world
 
+from torch_common import CULL_CASES, cull_frame
+
 CFG = TSDFConfig(xres=128, yres=128, zres=128, xsize=1.6, ysize=1.6, zsize=1.6,
                  max_dist_pos=0.04, max_dist_neg=0.04, min_sensor_dist=0.1,
                  image_width=160, image_height=120, focal_length_x=140.0,
@@ -1028,13 +1030,22 @@ def assert_dense_equal(k, p, mode, what):
                                    msg=what)
 
 
+def _dense_clone(vol):
+    return dataclasses.replace(vol, **{k: getattr(vol, k).clone()
+                                       for k in ("sdf", "weight", "M", "nsample", "color")
+                                       if getattr(vol, k) is not None})
+
+
 @pytest.mark.parametrize("case", list(DENSE_CASES))
 def test_dense_kernel_matches_plain(cuda_device, case):
     """ops.fusion.integrate_slab through the dense kernel (its default on
     the card) against integrate_slab_plain, frame after frame on a 128^3
     grid: all three color modes, frustum culling off, the depth and
     variance weights, a slab of planes [40, 88) and a grid whose zres is
-    not a multiple of 4. One kernel launch a frame."""
+    not a multiple of 4 (the one-voxel route). The kernel updates the
+    donated volume in place: each frame returns the input's own tensors,
+    one launch a frame, and the plain version runs on a clone of the state
+    each frame starts from; the sequences are compared too."""
     from cpu_tsdf_tpu_torch import make_volume
     from cpu_tsdf_tpu_torch.ops.fusion import integrate_slab, integrate_slab_plain
 
@@ -1045,11 +1056,16 @@ def test_dense_kernel_matches_plain(cuda_device, case):
         vol = dataclasses.replace(vol, **{k: getattr(vol, k)[x0:x0 + 48].clone()
                                           for k in ("sdf", "weight", "M", "nsample", "color")
                                           if getattr(vol, k) is not None})
-    k = p = vol
+    k, p = vol, _dense_clone(vol)
     fk.launches["dense_fusion"] = 0
-    for pose, depth, rgb in _frames(cfg, n, step, noise):
+    for i, (pose, depth, rgb) in enumerate(_frames(cfg, n, step, noise)):
         rgb = None if mode is None else rgb
-        k = integrate_slab(k, depth, pose, rgb, x0)
+        start = _dense_clone(k)
+        out = integrate_slab(k, depth, pose, rgb, x0)
+        assert out.sdf is k.sdf and out.nsample is k.nsample and out.color is k.color
+        assert_dense_equal(out, integrate_slab_plain(start, depth, pose, rgb, x0), mode,
+                           f"{case}: frame {i} from one state")
+        k = out
         p = integrate_slab_plain(p, depth, pose, rgb, x0)
     torch.cuda.synchronize()
     assert fk.launches["dense_fusion"] == n
@@ -1059,13 +1075,47 @@ def test_dense_kernel_matches_plain(cuda_device, case):
     assert_dense_equal(k, p, mode, case)
 
 
+@pytest.mark.parametrize("case", list(CULL_CASES))
+def test_dense_kernel_cull_cases(cuda_device, case):
+    """The dense kernel's column cull at the cases of the CPU tests
+    (tests/torch_common.py) on a 48^3 grid: a tilted view, a camera
+    outside the volume, columns parallel to the image plane (b_z = 0), the
+    optical axis along z, a slab of planes [16, 40), an all-NaN frame, a
+    +inf reading and min_sensor_dist 0. The intervals the kernel writes
+    equal dense_column_intervals column for column, and the frame fused in
+    place equals integrate_slab_plain on a clone, bit for bit."""
+    from cpu_tsdf_tpu_torch import make_volume
+    from cpu_tsdf_tpu_torch.geometry import rigid_inverse
+    from cpu_tsdf_tpu_torch.ops.fusion import integrate_slab_plain
+
+    cfg, pose, depth, x0, nx = cull_frame(case)
+    pose = torch.as_tensor(pose, device=cuda_device)
+    depth = torch.as_tensor(depth, device=cuda_device)
+    vol = make_volume(cfg, device=cuda_device)
+    vol = dataclasses.replace(vol, **{k: getattr(vol, k)[x0:x0 + nx].clone()
+                                      for k in ("sdf", "weight", "M", "nsample")})
+    start = _dense_clone(vol)
+    iv = torch.full((nx * cfg.yres, 2), -7, dtype=torch.int32, device=cuda_device)
+    out = fk.fuse_dense(vol, depth, pose, None, x0, intervals=iv)
+    p = integrate_slab_plain(start, depth, pose, None, x0)
+    lo, hi = fk.dense_column_intervals(cfg, rigid_inverse(pose), depth, x0, nx)
+    torch.cuda.synchronize()
+    assert torch.equal(iv.long(), torch.stack([lo.reshape(-1), hi.reshape(-1)], 1)), case
+    for name in ("sdf", "weight", "M", "nsample"):
+        torch.testing.assert_close(getattr(out, name), getattr(p, name), atol=0, rtol=0,
+                                   equal_nan=True, msg=f"{case}: {name}")
+    n_obs = int((p.nsample > 0).sum())
+    assert n_obs == 0 if case == "all_nan" else n_obs > 50, case
+
+
 def test_dense_kernel_gradients_match_plain(cuda_device):
     """integrate's gradients of a seeded weighting of the new sdf, M and
     color, for the depth, the pose, the rgb image and the old sdf, through
     the kernel's forward and through the plain version's, within 1e-5
     relative to the largest entry, NaN at the same entries (both backwards
     recompute the plain version; its gathers' backward adds with atomics,
-    in any order)."""
+    in any order). Under autograd the kernel runs on a copy: the input
+    volume is left as it was."""
     from cpu_tsdf_tpu_torch import integrate, make_volume
 
     cfg = _dense_cfg("RGB", {})
@@ -1074,6 +1124,7 @@ def test_dense_kernel_gradients_match_plain(cuda_device):
     for pose, depth, rgb in frames[:2]:
         vol = integrate(vol, depth, pose, rgb)
     pose, depth, rgb = frames[2]
+    before = _dense_clone(vol)
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     wts = torch.randn((3,) + vol.sdf.shape, generator=gen, device=cuda_device)
     grads = []
@@ -1081,12 +1132,15 @@ def test_dense_kernel_gradients_match_plain(cuda_device):
         ins = [torch.as_tensor(x, device=cuda_device).requires_grad_(True)
                for x in (depth, pose, rgb)]
         sdf = vol.sdf.clone().requires_grad_(True)
-        before = fk.launches["dense_fusion"]
+        launched = fk.launches["dense_fusion"]
         out = integrate(dataclasses.replace(vol, sdf=sdf), *ins, use_kernel=use_kernel)
-        assert fk.launches["dense_fusion"] == before + int(use_kernel)
+        assert fk.launches["dense_fusion"] == launched + int(use_kernel)
         loss = (torch.nansum(out.sdf * wts[0]) + torch.nansum(out.M * wts[1])
                 + torch.nansum(out.color * wts[2][..., None]))
         grads.append(torch.autograd.grad(loss, ins + [sdf]))
+        torch.cuda.synchronize()
+        assert torch.equal(sdf.detach(), before.sdf)
+        assert_dense_equal(vol, before, "RGB", f"the input, use_kernel={use_kernel}")
     for name, gk, gp in zip(("depth", "pose", "rgb", "sdf"), *grads):
         # NaN where the plain version's is: the missing depth pixels and
         # the voxels that see them (a NaN observation times the zero
@@ -1100,11 +1154,53 @@ def test_dense_kernel_gradients_match_plain(cuda_device):
         assert name == "rgb" or scale > 0, name   # trunc passes no gradient to rgb
 
 
+def test_dense_kernel_version_counters(cuda_device):
+    """A frame under autograd, then a no-grad frame fused in place into the
+    volume it returned: a tensor that autograd saved from the first frame's
+    output raises in the backward (the kernel moves the version counters
+    on), and the first frame's own saved inputs are untouched, so a
+    backward that saved no output gives the gradient it gives without the
+    second frame."""
+    from cpu_tsdf_tpu_torch import integrate, make_volume
+
+    cfg = _dense_cfg("RGB", {})
+    frames = list(_frames(cfg, 3))
+    pose, depth, rgb = frames[0]
+    vol = integrate(make_volume(cfg, device=cuda_device), depth, pose, rgb)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    wts = torch.randn(vol.sdf.shape, generator=gen, device=cuda_device)
+    pose, depth, rgb = frames[1]
+    grads = []
+    for second_frame in (False, True):
+        d = torch.as_tensor(depth, device=cuda_device).requires_grad_(True)
+        out = integrate(_dense_clone(vol), d, pose, rgb)
+        saved = torch.nansum(out.sdf ** 2)   # pow saves out.sdf
+        plain = torch.nansum(out.sdf * wts)  # saves wts only
+        if second_frame:
+            version = out.sdf._version
+            pose2, depth2, rgb2 = frames[2]
+            with torch.no_grad():
+                again = integrate(out, depth2, pose2, rgb2)
+            assert again.sdf is out.sdf and out.sdf._version > version
+            with pytest.raises(RuntimeError, match="modified by an inplace operation"):
+                torch.autograd.grad(saved, d, retain_graph=True)
+        (g,) = torch.autograd.grad(plain, d)
+        grads.append(g)
+    torch.cuda.synchronize()
+    # within 1e-5 of the largest entry: the backward's gathers add with
+    # atomics, in any order
+    assert torch.equal(grads[0].isnan(), grads[1].isnan())
+    g0, g1 = grads[0].nan_to_num(), grads[1].nan_to_num()
+    scale = float(g0.abs().max())
+    assert scale > 0 and float((g0 - g1).abs().max()) <= 1e-5 * scale
+
+
 def test_dense_kernel_64bit_offsets(cuda_device):
     """A 1024 x 1024 x 704 grid with RGB color (3 m wide; its color tensor
-    has 2.2e9 entries, past 2^31; 41 GB of state in and out) fused from one
-    frame of a camera at x = +2 m looking at the sphere: the kernel's last
-    8 x-planes equal integrate_slab_plain on those planes of the input."""
+    has 2.2e9 entries, past 2^31; 21 GB of state) fused from one
+    frame of a camera at x = +2 m looking at the sphere, in place: the
+    kernel's last 8 x-planes equal integrate_slab_plain on a copy of those
+    planes of the input."""
     from cpu_tsdf_tpu_torch import TSDFVolume, integrate, make_volume
     from cpu_tsdf_tpu_torch.ops.fusion import integrate_slab_plain
 
@@ -1116,11 +1212,11 @@ def test_dense_kernel_64bit_offsets(cuda_device):
     rgb = np.random.default_rng(5).integers(0, 256, depth.shape + (3,)).astype(np.float32)
     vol = make_volume(cfg, device=cuda_device)
     assert vol.color.numel() > 2 ** 31
-    out = integrate(vol, depth, pose, rgb)
     x0 = cfg.xres - 8
     last = TSDFVolume(**{k: getattr(vol, k)[x0:].clone()
                          for k in ("sdf", "weight", "M", "nsample", "color")},
                       global_transform=vol.global_transform, config=cfg)
+    out = integrate(vol, depth, pose, rgb)   # in place: vol is donated
     del vol
     p = integrate_slab_plain(last, depth, pose, rgb, x0)
     k = TSDFVolume(**{k: getattr(out, k)[x0:] for k in ("sdf", "weight", "M", "nsample", "color")},

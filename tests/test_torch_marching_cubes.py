@@ -36,6 +36,7 @@ from cpu_tsdf_tpu_torch.ops.mc_tables import TRI_COUNT, TRI_TABLE
 
 from test_fusion import tilted_pose
 from test_torch_bricks import jax_arrays
+import torch_common  # noqa: F401  (one intra-op thread)
 
 MIN_W = 0.5
 

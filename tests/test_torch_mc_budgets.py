@@ -28,6 +28,7 @@ from cpu_tsdf_tpu_torch.ops import marching_cubes as tmc
 
 from test_fusion import tilted_pose
 from test_torch_bricks import jax_arrays
+import torch_common  # noqa: F401  (one intra-op thread)
 
 MIN_W = 0.5
 POSES = (tilted_pose(), tilted_pose(tx=0.063, ty=0.041, tz=-0.88))

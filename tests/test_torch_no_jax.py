@@ -17,6 +17,8 @@ from cpu_tsdf_tpu_torch.cli import integrate_main, tsdf2mesh_main
 from cpu_tsdf_tpu_torch.io import pcd
 from cpu_tsdf_tpu_torch.synthetic import orbit_pose, sphere_depth_world
 
+import torch_common  # noqa: F401  (one intra-op thread)
+
 REPO = os.path.join(os.path.dirname(__file__), "..")
 
 SCRIPT = r"""

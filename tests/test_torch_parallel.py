@@ -40,6 +40,7 @@ from cpu_tsdf_tpu_torch.parallel.distributed import backend_for, initialize
 from test_fusion import tilted_pose
 from test_torch_bricks import jax_arrays
 from torch_parallel_worker import relay_by_slabs
+import torch_common  # noqa: F401  (one intra-op thread)
 
 WORKER = os.path.join(os.path.dirname(__file__), "torch_parallel_worker.py")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

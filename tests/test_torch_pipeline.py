@@ -16,6 +16,8 @@ from cpu_tsdf_tpu.config import TSDFConfig as JConfig
 from cpu_tsdf_tpu_torch import pipeline as tp
 from cpu_tsdf_tpu_torch.config import TSDFConfig
 
+import torch_common  # noqa: F401  (one intra-op thread)
+
 
 def _cfgs():
     j = JConfig(image_width=64, image_height=48, focal_length_x=52.5, focal_length_y=52.5,

@@ -27,6 +27,7 @@ from cpu_tsdf_tpu_torch.volume import occupied_voxel_indices
 
 from test_fusion import tilted_pose
 from test_torch_bricks import jax_arrays
+import torch_common  # noqa: F401  (one intra-op thread)
 
 # tests/test_refine.py's perturbation: ~2.5 cm and ~2 degrees
 TWIST = np.array([0.024, -0.018, 0.015, 0.03, -0.024, 0.018], np.float32)

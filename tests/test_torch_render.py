@@ -35,6 +35,7 @@ from cpu_tsdf_tpu_torch.ops.raycast_kernel import render_depth_diff
 
 from test_fusion import tilted_pose
 from test_torch_bricks import jax_arrays
+import torch_common  # noqa: F401  (one intra-op thread)
 
 
 def _scene(mdp=0.04, mdn=0.04, colored=True):

@@ -29,6 +29,7 @@ from cpu_tsdf_tpu_torch.ops.raycast import camera_rays, render_rays
 from cpu_tsdf_tpu_torch.ops.raycast_kernel import march_plain
 
 from test_torch_render import _dense_pair, _scene
+import torch_common  # noqa: F401  (one intra-op thread)
 
 
 @pytest.fixture(scope="module")

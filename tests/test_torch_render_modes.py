@@ -32,6 +32,7 @@ from cpu_tsdf_tpu_torch.ops import marching_cubes as tmc
 from test_fusion import tilted_pose
 from test_torch_bricks import jax_arrays
 from test_torch_render import _scene
+import torch_common  # noqa: F401  (one intra-op thread)
 
 
 def test_nearest_mode_render_matches_jax():

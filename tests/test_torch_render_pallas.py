@@ -22,6 +22,7 @@ from cpu_tsdf_tpu.ops.pallas_raycast import render_view_pallas
 from cpu_tsdf_tpu_torch import render_view
 
 from test_torch_render import _scene
+import torch_common  # noqa: F401  (one intra-op thread)
 
 
 @pytest.fixture(scope="module")

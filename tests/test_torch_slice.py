@@ -23,6 +23,7 @@ from cpu_tsdf_tpu_torch.ops.marching_cubes import extract_mesh
 
 from test_fusion import tilted_pose
 from test_torch_bricks import assert_volumes_match, jax_arrays
+import torch_common  # noqa: F401  (one intra-op thread)
 
 
 def _orbit(cfg, n_poses=6, seed=7):
