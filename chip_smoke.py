@@ -110,10 +110,13 @@ Phases (any failure raises and exits non-zero before the last line):
      into four volumes, every state tensor bit-equal and the fusion kernel
      counted once a frame on each route, then the graphed sequence again
      (steady: its graph captured); an eager and a graphed frame under
-     torch.cuda.set_sync_debug_mode("error"); the card's busy share of 8
-     frames on each route (torch.profiler); the 48 colored renders of one
+     torch.cuda.set_sync_debug_mode("error"); the card's idle share of 8
+     frames on each route (the port's tracing: the device time between one
+     call's end and the next call's begin); the 48 colored renders of one
      packed volume graphed and eager, bit-equal, the march counted once a
-     render, with their busy shares; the same fusion comparison on 6 frames
+     render, with their idle shares; a graphed pass and 100 graphed renders
+     with tracing on under the sync debug mode, each stage stamped at every
+     replay (its report's stages in the line); the same fusion comparison on 6 frames
      at phase 10's bricks of 4 and 16 and with num_random_splits = 3. Steady
      frame ms (host clock, the first frame apart: it captures), renders/s,
      each graph's capture ms, pool MB and launches a replay go to a
@@ -129,9 +132,9 @@ Phases (any failure raises and exits non-zero before the last line):
      call under torch.cuda.set_sync_debug_mode("error"), a quarter of each
      budget setting overflowed and the checked route recovering the mesh;
      steady ms of both routes and of the checked call with hints (host
-     clock, the first call apart), busy shares, the graph's capture ms and
+     clock, the first call apart), idle shares, the graph's capture ms and
      pool MB. Then phase 8's refine step and residual graphed and eager,
-     bit-equal at three step scales, with steady ms and busy shares; and
+     bit-equal at three step scales, with steady ms and idle shares; and
      organize_cloud graphed and eager on phase 7's 20 PCDs, bit-equal, with
      the median ms a frame. The emission under a triangle budget of a third
      of the mesh is held against its plain version's truncation in phases
@@ -158,7 +161,7 @@ Phases (any failure raises and exits non-zero before the last line):
      (bound_every_voxel_projected_ms) and every voxel read and written once
      (bound_all_ms), the voxels the kernel projected (its column
      intervals, read back from the kernel and held equal to
-     fusion_kernel.dense_column_intervals column for column), busy
+     fusion_kernel.dense_column_intervals column for column), idle
      shares. Then the checked extraction
      through its graphs (the default on the card: the brick stats' graph
      replayed a live chunk, one chunk graph a budget triple replayed a
@@ -166,7 +169,7 @@ Phases (any failure raises and exits non-zero before the last line):
      frames:
      triangles, colors, live chunks and hints bit-equal with the default
      budgets and with the first call's hints, the first graphed call's ms
-     (its capture), steady ms of each route, busy shares, the graphs' capture
+     (its capture), steady ms of each route, idle shares, the graphs' capture
      ms and pool MB, and a one-shot extract_mesh both ways (the CLIs pass
      graph=False).
      Phase 7's 3-frame dense run must launch the dense kernel once a frame,
@@ -578,16 +581,9 @@ def render_phase(torch, cfg, vol, poses, poses_h, timer):
         f"{nbytes} bytes, {nops} operations; colored render_view of the packed "
         f"volume {t_view:.4f} ms (CUDA events, launches included)")
     n_prof = 8
-    t0 = time.perf_counter()
-    for k in range(n_prof):
-        render_view(packed, poses[k], colored=True)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
     busy, top = device_ms(torch, lambda: [render_view(packed, poses[k], colored=True)
                                           for k in range(n_prof)])
-    log(f"device busy over {n_prof} renders: {busy:.4f} ms of {wall:.4f} ms wall "
-        f"(share {busy / wall:.4f}; torch.profiler kernel time, wall unprofiled); "
-        f"largest: {top}")
+    log(f"kernel time over {n_prof} renders: {busy:.4f} ms (torch.profiler); largest: {top}")
 
     grad = render_grad_phase(torch, cfg, vol, packed, poses[n_poses // 2], timer, t_k)
     return record("raycast", "cpu_tsdf_tpu_torch/csrc/raycast.cu",
@@ -1112,8 +1108,7 @@ def refine_phase(torch, cfg, vol, pose_h):
            "iters": REFINE_ITERS, "loss_before": losses[0], "loss_after": losses[-1],
            "losses": losses, "translation_err_before_m": err0, "translation_err_after_m": err1,
            "rotation_err_max": rot, "refine_pose_s": wall, "step_ms": step_s * 1e3,
-           "steps_per_s": 1.0 / step_s, **parts, "step_device_ms": busy,
-           "step_device_share": busy / (step_s * 1e3)}
+           "steps_per_s": 1.0 / step_s, **parts, "step_device_ms": busy}
     log(f"refine: {res['points']} points ({cfg.image_width}x{cfg.image_height} at downsample "
         f"2), {REFINE_ITERS} iterations in {wall:.3f} s; loss {losses[0]:.6g} -> {losses[-1]:.6g} "
         f"({losses[0] / max(losses[-1], 1e-30):.2f}x); translation error {err0 * 1e3:.3f} -> "
@@ -1436,15 +1431,66 @@ def fuse_routes(torch, cfg, B, capacity, budget, poses, depths, rgb, frames):
     return ms, vols
 
 
-def busy_share(torch, fn) -> dict:
-    """fn's kernel time by torch.profiler over its unprofiled wall time."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    busy, top = device_ms(torch, fn)
-    return {"wall_ms": wall, "device_ms": busy, "share": busy / wall, "largest": top}
+def idle_share(torch, fn) -> dict:
+    """fn's calls into the port measured by its tracing
+    (cpu_tsdf_tpu_torch/tracing.py), after one run of fn that captures
+    their graphs with the stages' stamps: the run's wall ms (host clock,
+    ending in a synchronize), the device ms from the first call's begin to
+    the last call's end (window_ms), the share of it the card waited
+    between calls (idle_share), and the device ms inside the calls outside
+    their stages, by host span."""
+    from cpu_tsdf_tpu_torch import tracing
+
+    tracing.enable()
+    try:
+        fn()
+        torch.cuda.synchronize()
+        tracing.reset()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        calls = tracing.report()["calls"]
+    finally:
+        tracing.disable()
+    return {"wall_ms": wall, "window_ms": calls["window_ms"], "idle_share": calls["idle_share"],
+            "inside_ms": calls["inside_ms"], "gaps_ms": calls["gaps_ms"]}
+
+
+def traced_pass_and_renders(torch, vol, packed, poses, depths, rgb, budget: int,
+                            n_renders: int = 100) -> dict:
+    """One graphed pass of the orbit (integrate_bricks_sequence) and
+    n_renders graphed renders of `packed` with tracing on, under
+    torch.cuda.set_sync_debug_mode("error") (their graphs captured with
+    the stages' stamps before it): every frame and render stamps each of
+    its stages. Returns the tracing report's stages, calls and spans."""
+    from cpu_tsdf_tpu_torch import bricks, render_view, tracing
+
+    n = len(poses)
+    rgbs = rgb.expand(n, *rgb.shape)
+    tracing.enable()
+    try:
+        bricks.integrate_bricks_sequence(vol, depths[:1], poses[:1], rgbs[:1], budget)
+        render_view(packed, poses[0], colored=True)
+        torch.cuda.synchronize()
+        tracing.reset()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            bricks.integrate_bricks_sequence(vol, depths, poses, rgbs, budget)
+            for i in range(n_renders):
+                render_view(packed, poses[i % n], colored=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        rep = tracing.report()
+    finally:
+        tracing.disable()
+    want = {**{f"frame.{s}": n for s in ("activation", "allocation", "batch")},
+            **{f"render.{s}": n_renders for s in ("rays", "march", "finish")}}
+    got = {k: rep["stages"].get(k, {}).get("count") for k in want}
+    if got != want or rep["calls"]["count"] != 1 + n_renders or any(rep["dropped"].values()):
+        raise AssertionError(f"traced pass and renders: stages {got} (want {want}), calls "
+                             f"{rep['calls']['count']}, dropped {rep['dropped']}")
+    return {k: rep[k] for k in ("stages", "calls", "spans")}
 
 
 def graph_phase(torch, cfg, poses, depths, rgb, smi):
@@ -1482,9 +1528,9 @@ def graph_phase(torch, cfg, poses, depths, rgb, smi):
     assert_states_equal(torch, vols["graph"], vols["eager"], "a frame under the sync check")
     log("an eager and a graphed frame ran under torch.cuda.set_sync_debug_mode('error')")
 
-    # the card's busy share of 8 frames, each route (on its volume, whose
+    # the card's idle share of 8 frames, each route (on its volume, whose
     # graph is captured)
-    res["frame_busy"] = {r: busy_share(torch, lambda: [
+    res["frame_idle"] = {r: idle_share(torch, lambda: [
         bricks.integrate_bricks(vols[r], depths[i], poses[i], rgb, budget,
                                 graph=None if r == "graph" else False) for i in range(8)])
         for r in ("graph", "eager")}
@@ -1512,12 +1558,18 @@ def graph_phase(torch, cfg, poses, depths, rgb, smi):
     render_graph = graph.stats()[-1]
     res["render_ms"] = t
     res["renders_per_s"] = {k: 1e3 / v for k, v in t.items()}
-    res["render_busy"] = {r: busy_share(torch, lambda: [
+    res["render_idle"] = {r: idle_share(torch, lambda: [
         render_view(packed, poses[i], colored=True, graph=None if r == "graph" else False)
         for i in range(8)]) for r in ("graph", "eager")}
     log(f"graphs: {n} colored renders, graphed and eager bit-equal; ms a render {t}; render "
         f"graph: capture {render_graph['capture_ms']:.2f} ms, pool "
         f"{render_graph['pool_mb']:.2f} MB")
+    res["traced"] = traced_pass_and_renders(torch, vols["graph"], packed, poses, depths, rgb,
+                                            budget)
+    log(f"tracing on: a graphed pass of {n} frames and 100 graphed renders ran under "
+        f"torch.cuda.set_sync_debug_mode('error'), every stage stamped at every replay; "
+        f"stages {json.dumps(res['traced']['stages'])}; calls "
+        f"{json.dumps(res['traced']['calls'])}")
     del vols, views, packed
 
     # the other brick sizes, and the jitter, on a few frames
@@ -1534,9 +1586,10 @@ def graph_phase(torch, cfg, poses, depths, rgb, smi):
     res["graphs"] = graph.stats()
     res["frame_graph"], res["render_graph"] = frame_graph, render_graph
     for r in ("graph", "eager"):
-        log(f"busy share, {r}: frames {res['frame_busy'][r]['share']:.4f} "
-            f"({res['frame_busy'][r]['device_ms']:.4f} of {res['frame_busy'][r]['wall_ms']:.4f} ms), "
-            f"renders {res['render_busy'][r]['share']:.4f}")
+        log(f"idle share (tracing), {r}: frames {res['frame_idle'][r]['idle_share']:.4f} "
+            f"(of {res['frame_idle'][r]['window_ms']:.4f} device ms; wall "
+            f"{res['frame_idle'][r]['wall_ms']:.4f} ms), renders "
+            f"{res['render_idle'][r]['idle_share']:.4f}")
     return res
 
 
@@ -1661,7 +1714,7 @@ def extraction_phase(torch, cfg, vol, pose_h, smi, breakdown) -> dict:
         for r in ("graph", "eager")}
     res["checked_hinted_ms"] = host_ms(torch, lambda: mc.extract_soup_bricks(
         vol, 0.5, True, live_chunks=live, budget_hint=hint))
-    res["busy"] = {r: busy_share(torch, lambda: [mc.extract_soup_bricks(
+    res["idle"] = {r: idle_share(torch, lambda: [mc.extract_soup_bricks(
         vol, 0.5, True, **args, graph=None if r == "graph" else False) for _ in range(8)])
         for r in ("graph", "eager")}
     res["extract_graph"] = [g for g in graph.stats() if g["kind"] == "extract"]
@@ -1669,8 +1722,9 @@ def extraction_phase(torch, cfg, vol, pose_h, smi, breakdown) -> dict:
         f"an eager call ran under set_sync_debug_mode('error'), a quarter of each budget "
         f"overflows and the checked route recovers; steady ms {res['steady_ms']} (host clock, "
         f"synchronized), checked with hints {res['checked_hinted_ms']:.4f} ms; first graphed "
-        f"call {res['graph_first_ms']:.2f} ms; busy share graph "
-        f"{res['busy']['graph']['share']:.4f}, eager {res['busy']['eager']['share']:.4f}; "
+        f"call {res['graph_first_ms']:.2f} ms; idle share graph "
+        f"{res['idle']['graph']['idle_share']:.4f}, eager "
+        f"{res['idle']['eager']['idle_share']:.4f}; "
         f"graph {res['extract_graph']}")
 
     # ---- 4. the refine step and residual: graphed and eager ----------------
@@ -1691,13 +1745,13 @@ def extraction_phase(torch, cfg, vol, pose_h, smi, breakdown) -> dict:
         vol, bad, depth, 2, graph=None if r == "graph" else False)) for r in ("graph", "eager")}
     res["refine_residual_ms"] = {r: host_ms(torch, lambda: refine.depth_residual(
         vol, bad, depth, 2, graph=None if r == "graph" else False)) for r in ("graph", "eager")}
-    res["refine_busy"] = {r: busy_share(torch, lambda: [refine.refine_pose_step(
+    res["refine_idle"] = {r: idle_share(torch, lambda: [refine.refine_pose_step(
         vol, bad, depth, 2, graph=None if r == "graph" else False) for _ in range(8)])
         for r in ("graph", "eager")}
     log(f"refine: graphed step and residual bit-equal to eager at 3 step scales; step ms "
-        f"{res['refine_step_ms']}, residual ms {res['refine_residual_ms']}; busy share graph "
-        f"{res['refine_busy']['graph']['share']:.4f}, eager "
-        f"{res['refine_busy']['eager']['share']:.4f}")
+        f"{res['refine_step_ms']}, residual ms {res['refine_residual_ms']}; idle share graph "
+        f"{res['refine_idle']['graph']['idle_share']:.4f}, eager "
+        f"{res['refine_idle']['eager']['idle_share']:.4f}")
 
     # ---- 5. organize_cloud: graphed and eager on phase 7's PCDs ------------
     ccfg = type(cfg)()
@@ -1740,7 +1794,7 @@ def checked_routes(torch, mc, graph, vol, what: str) -> dict:
     budget triple replayed a chunk) and eagerly: bit-equal triangles,
     colors, live chunks and
     hints, the default budgets and the first call's hints; the first
-    graphed call (capture), steady ms of each route (host clock), busy
+    graphed call (capture), steady ms of each route (host clock), idle
     shares, and extract_mesh's one-shot call both ways (the CLI's)."""
     graph.clear()
     torch.cuda.synchronize()
@@ -1769,7 +1823,7 @@ def checked_routes(torch, mc, graph, vol, what: str) -> dict:
     res["steady_ms"] = {f"{name}_{r}": host_ms(torch, lambda: mc.extract_soup_bricks(
         vol, 0.5, True, **kw, graph=None if r == "graph" else False))
         for name, kw in calls.items() for r in ("graph", "eager")}
-    res["busy"] = {r: busy_share(torch, lambda: [mc.extract_soup_bricks(
+    res["idle"] = {r: idle_share(torch, lambda: [mc.extract_soup_bricks(
         vol, 0.5, True, graph=None if r == "graph" else False) for _ in range(8)])
         for r in ("graph", "eager")}
     res["graphs"] = [g for g in graph.stats() if g["kind"].startswith("extract_checked")]
@@ -1786,8 +1840,8 @@ def checked_routes(torch, mc, graph, vol, what: str) -> dict:
         f"chunks, hints; default budgets and hints), {res['triangles']} triangles in "
         f"{res['live_chunks']} live chunks; first graphed call {res['first_graphed_ms']:.2f} "
         f"ms (launches {res['launches_first_call']}); steady ms {res['steady_ms']} (host "
-        f"clock); busy share graph {res['busy']['graph']['share']:.4f}, eager "
-        f"{res['busy']['eager']['share']:.4f}; one-shot extract_mesh ms "
+        f"clock); idle share graph {res['idle']['graph']['idle_share']:.4f}, eager "
+        f"{res['idle']['eager']['idle_share']:.4f}; one-shot extract_mesh ms "
         f"{res['extract_mesh_one_shot_ms']}; graphs {res['graphs']}")
     return res
 
@@ -1927,7 +1981,7 @@ def dense_phase(torch, cfg, vol, poses, depths, rgb, smi, timer):
                bound_all_ms=rec["bound_all_ms"], bytes_all=all_bytes,
                observed_in_frame=n_obs, candidates=n_cand, projected_by_kernel=n_cull,
                share_of_bound=rec["bound_ms"] / t_k, device_ms_by_kernel=breakdown)
-    res["busy"] = {r: busy_share(torch, lambda: [T.integrate(
+    res["idle"] = {r: idle_share(torch, lambda: [T.integrate(
         start, depths[j], poses[j], rgb, use_kernel=r == "kernel") for j in range(3)])
         for r in ("kernel", "plain")}
     log(f"dense kernel vs plain on frame {i}: equal (sdf/M err {err}); kernel {t_k:.5f} ms, "
@@ -1939,8 +1993,9 @@ def dense_phase(torch, cfg, vol, poses, depths, rgb, smi, timer):
         f"{rec['bound_every_voxel_projected_ms']:.5f} ms, every voxel read and written "
         f"{rec['bound_all_ms']:.4f} ms ({all_bytes} bytes); the autograd route's frame "
         f"{res['autograd_frame_ms']:.3f} ms (host clock); device ms by kernel "
-        f"(torch.profiler) {breakdown}; busy share kernel "
-        f"{res['busy']['kernel']['share']:.4f}, plain {res['busy']['plain']['share']:.4f}")
+        f"(torch.profiler) {breakdown}; idle share (tracing) kernel "
+        f"{res['idle']['kernel']['idle_share']:.4f}, plain "
+        f"{res['idle']['plain']['idle_share']:.4f}")
     del start
     torch.cuda.empty_cache()
 
@@ -2108,16 +2163,10 @@ def main() -> int:
         f"{t_fb:.4f} ms (kernel + glue: rgb trunc, row stack; launches included), glue "
         f"{t_fb - t_fk:.4f} ms")
     n_prof = 8
-    t0 = time.perf_counter()
-    for i in range(n_prof):
-        T.integrate_bricks(shadow_vol, depths[i], poses[i], rgb, budget, graph=False)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
     busy, top = device_ms(torch, lambda: [
         T.integrate_bricks(shadow_vol, depths[i], poses[i], rgb, budget, graph=False)
         for i in range(n_prof)])
-    log(f"device busy over {n_prof} frames: {busy:.4f} ms of {wall:.4f} ms wall "
-        f"(share {busy / wall:.4f}; torch.profiler kernel time, wall unprofiled); "
+    log(f"kernel time over {n_prof} eager frames: {busy:.4f} ms (torch.profiler); "
         f"largest: {top}")
 
     # extraction steps on the main volume: the checked route with a first

@@ -25,7 +25,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-KERNELS = ("fusion", "mc_corner_halo", "mc_emit", "raycast")
+KERNELS = ("fusion", "mc_corner_halo", "mc_emit", "raycast", "trace")
 
 # --fmad=false: the fusion, ray-march and MC emission kernels must
 # reproduce their plain versions' float32 rounding op for op (a contracted

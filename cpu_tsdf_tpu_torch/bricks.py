@@ -33,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import tracing
 from .config import TSDFConfig
 from .geometry import rigid_inverse
 from .volume import TSDFVolume, color_channels, resolve_device, resolve_use_kernel
@@ -380,6 +381,7 @@ def frame_update_list(vol: BrickVolume, depth, pose_inv, update_budget: int,
         carve_mask, torch.arange(C, dtype=torch.int32, device=vol.device), carve_budget)
     overflow = overflow | (n_carve > carve_budget)
 
+    tracing.stage("frame.allocation", vol.device)
     _allocate_from_list(vol, bids)
     bsafe = torch.clamp(bids, min=0)
     slots = vol.brick_map.view(-1)[bsafe.long()]
@@ -412,33 +414,40 @@ def integrate_bricks(vol: BrickVolume, depth, pose, rgb=None,
     graph (:mod:`.graph`; captured at the first frame of this volume and
     these settings, which runs as its warm-up, then replayed), eagerly on
     the CPU; False = eagerly anywhere; True on the CPU raises. Both routes
-    run the same program and give the same bits."""
+    run the same program and give the same bits. The tracing call
+    ``integrate_bricks``."""
     from .graph import integrate_graphed, resolve_graph
 
     dev = vol.device
-    kernel = resolve_use_kernel(use_kernel, dev)
-    if resolve_graph(graph, dev):
-        integrate_graphed(vol, depth, pose, rgb, update_budget, kernel, split_generator)
+    with tracing.call("integrate_bricks", dev):
+        kernel = resolve_use_kernel(use_kernel, dev)
+        if resolve_graph(graph, dev):
+            integrate_graphed(vol, depth, pose, rgb, update_budget, kernel, split_generator)
+            return vol
+        depth = torch.as_tensor(depth, dtype=torch.float32, device=dev)
+        pose = torch.as_tensor(pose, dtype=torch.float32, device=dev)
+        fuse_frame(vol, depth, pose, rgb, update_budget, kernel, split_generator)
         return vol
-    depth = torch.as_tensor(depth, dtype=torch.float32, device=dev)
-    pose = torch.as_tensor(pose, dtype=torch.float32, device=dev)
-    fuse_frame(vol, depth, pose, rgb, update_budget, kernel, split_generator)
-    return vol
 
 
 def fuse_frame(vol: BrickVolume, depth, pose, rgb, update_budget: int, kernel: bool,
                split_generator: Optional[torch.Generator]) -> None:
     """One frame on device tensors, in place: activation, allocation and
-    the batched update. Fixed shapes and no host sync (the graph of
-    :mod:`.graph` captures it; tests/test_torch_graph.py records its ops),
-    every state update in place."""
+    the batched update, the device stages ``frame.activation``,
+    ``frame.allocation`` and ``frame.batch``. Fixed shapes and no host sync
+    (the graph of :mod:`.graph` captures it; tests/test_torch_graph.py
+    records its ops), every state update in place."""
+    dev = vol.device
+    tracing.stage("frame.activation", dev)
     pose_inv = rigid_inverse(pose)
     bx, by, bz, slot_ok, slots, overflow = frame_update_list(
         vol, depth, pose_inv, update_budget, pose, split_generator)
+    tracing.stage("frame.batch", dev)
     fuse_brick_batch(vol.config, vol.brick_size, bx, by, bz, slot_ok, slots,
                      vol.sdf, vol.weight, vol.M, vol.nsample, vol.color,
                      depth, pose_inv, rgb, kernel)
     vol.overflowed |= overflow
+    tracing.stage(None, dev)
 
 
 def integrate_bricks_sequence(vol: BrickVolume, depths, poses, rgbs=None,
@@ -459,28 +468,30 @@ def integrate_bricks_sequence(vol: BrickVolume, depths, poses, rgbs=None,
     the frame's graph, their inputs copied on the device from one upload
     of the whole sequence, with no host sync between frames: the host
     queues the trajectory ahead of the card, as the JAX package's one
-    ``lax.scan`` program runs it."""
+    ``lax.scan`` program runs it. The tracing call
+    ``integrate_bricks_sequence``."""
     from .graph import integrate_graphed, resolve_graph
 
     dev = vol.device
-    if not resolve_graph(graph, dev):
-        if vol.config.num_random_splits > 1 and split_generator is None:
-            split_generator = torch.Generator(device=dev).manual_seed(0)
+    with tracing.call("integrate_bricks_sequence", dev):
+        if not resolve_graph(graph, dev):
+            if vol.config.num_random_splits > 1 and split_generator is None:
+                split_generator = torch.Generator(device=dev).manual_seed(0)
+            for i in range(len(depths)):
+                integrate_bricks(vol, depths[i], poses[i],
+                                 None if rgbs is None else rgbs[i], update_budget,
+                                 use_kernel, split_generator, graph=False)
+            return vol
+        kernel = resolve_use_kernel(use_kernel, dev)
+        depths = torch.as_tensor(depths, dtype=torch.float32, device=dev)
+        poses = torch.as_tensor(poses, dtype=torch.float32, device=dev)
+        if rgbs is not None:
+            rgbs = torch.as_tensor(rgbs, dtype=torch.float32, device=dev)
         for i in range(len(depths)):
-            integrate_bricks(vol, depths[i], poses[i],
-                             None if rgbs is None else rgbs[i], update_budget,
-                             use_kernel, split_generator, graph=False)
+            # the graph's own generator (no split_generator) is seeded 0 once
+            integrate_graphed(vol, depths[i], poses[i], None if rgbs is None else rgbs[i],
+                              update_budget, kernel, split_generator, reseed=i == 0)
         return vol
-    kernel = resolve_use_kernel(use_kernel, dev)
-    depths = torch.as_tensor(depths, dtype=torch.float32, device=dev)
-    poses = torch.as_tensor(poses, dtype=torch.float32, device=dev)
-    if rgbs is not None:
-        rgbs = torch.as_tensor(rgbs, dtype=torch.float32, device=dev)
-    for i in range(len(depths)):
-        # the graph's own generator (no split_generator) is seeded 0 once
-        integrate_graphed(vol, depths[i], poses[i], None if rgbs is None else rgbs[i],
-                          update_budget, kernel, split_generator, reseed=i == 0)
-    return vol
 
 
 def fuse_brick_batch(cfg: TSDFConfig, B: int, bx, by, bz, slot_ok, slots,

@@ -32,12 +32,23 @@ hand-written kernels and their glue run with no per-op host dispatch.
 * **Warm-up and capture.** The first call of a graph runs the program
   eagerly on a side stream (the real frame or render: it loads the
   kernel libraries and the stream's cuBLAS workspace, neither of which may
-  happen during a capture), then captures it on that stream.
+  happen during a capture), then captures it on that stream. With tracing
+  on, the warm-up runs on the caller's stream instead, and one small
+  matrix product on the side stream gives cuBLAS that stream's workspace:
+  on the H100 hosts measured (PERF.md) the warm-up's burst of
+  launches on the side stream slows every graph replay on the caller's
+  stream by ~25 % for the next 2-36 s, which the traced replays would
+  read as stage time. (Off, the side stream keeps the warm-up's memory
+  apart: on the caller's stream the card tests' many large graphs ran out
+  of memory.)
 * **Cache.** Graphs are kept by the device, the address, shape and type of
   every state tensor of the volume, the config, the brick size, the input
   shapes and the program's settings (a frame's budget, color, kernel route
   and split generator; an extraction's chunks and budgets); a changed key
-  (a new or reloaded volume, other settings) captures anew. The checked
+  (a new or reloaded volume, other settings) captures anew. Every key
+  holds the tracing state (``tracing.enabled()``): a graph captured with
+  its device stages' stamps is replayed only while tracing is on, one
+  without them only while it is off. The checked
   extraction's graphs of a volume and settings share one key: the brick
   stats' graph and one chunk graph a budget triple, each replayed once a
   chunk, the chunk's start filled into a static device buffer (chunks of
@@ -55,7 +66,13 @@ hand-written kernels and their glue run with no per-op host dispatch.
 * **Launch counts.** The kernels a capture records are counted at every
   replay in the wrappers' counters (``fusion_kernel.launches``,
   ``raycast_kernel.launches``, ``marching_cubes.launches``); the capture
-  itself launches nothing.
+  itself launches nothing. The tracing counters :data:`counts` count
+  captures, replays, lookups that found no graph (misses) and graphs
+  dropped from the cache (evictions).
+* **Spans.** A capture is the host span ``graph.capture`` (``capture_ms``
+  is its duration); a frame's and a program's call through its graph open
+  ``graph.lookup`` (the key and the cache), ``graph.inputs`` and
+  ``graph.replay`` (``tracing``).
 
 A capture or replay that fails raises: nothing falls back to the eager
 route. Out of the graphs: the sharded paths (gloo collectives through the
@@ -67,10 +84,11 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import time
 from typing import Optional
 
 import torch
+
+from . import tracing
 
 # Keys kept at once (each graph holds a private memory pool, and keeps the
 # tensors of its volume alive).
@@ -82,6 +100,7 @@ MAX_CHECKED_GRAPHS = 32
 
 _cache: "collections.OrderedDict[tuple, object]" = collections.OrderedDict()
 _streams = {}
+counts = tracing.counters("graph", {"captures": 0, "replays": 0, "misses": 0, "evictions": 0})
 
 
 def resolve_graph(graph: Optional[bool], device: torch.device) -> bool:
@@ -101,13 +120,14 @@ def _counters():
 
 
 def state_key(vol) -> tuple:
-    """The volume's type, config and sizes, and the address, shape, stride
-    and dtype of each of its state tensors: what a graph of it depends on."""
+    """The volume's type, config and sizes, the address, shape, stride and
+    dtype of each of its state tensors, and the tracing state: what a graph
+    of it depends on."""
     tensors = tuple((f.name, t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
                     for f in dataclasses.fields(vol)
                     if isinstance(t := getattr(vol, f.name), torch.Tensor))
     return (type(vol).__name__, vol.config, getattr(vol, "brick_size", 0),
-            getattr(vol, "capacity", 0), tensors)
+            getattr(vol, "capacity", 0), tensors, tracing.enabled())
 
 
 def _side_stream(device) -> torch.cuda.Stream:
@@ -125,37 +145,47 @@ class _Captured:
 
     def __init__(self, device, program, generator: Optional[torch.Generator] = None):
         stream = _side_stream(device)
+        traced = tracing.enabled()
+        if traced:
+            self.warm = program()
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
-            self.warm = program()
+            if traced:
+                one = torch.ones((2, 2), device=device)
+                one @ one                   # cuBLAS's workspace for this stream
+            else:
+                self.warm = program()
         torch.cuda.current_stream(device).wait_stream(stream)
         torch.cuda.synchronize(device)
         reserved = torch.cuda.memory_reserved(device)
         before = [dict(c) for c in _counters()]
-        t0 = time.perf_counter()
-        self.graph = torch.cuda.CUDAGraph()
-        if generator is not None:
-            self.graph.register_generator_state(generator)
-        # capture_begin/end, not the torch.cuda.graph context: that one
-        # empties the allocator's cache, and every later allocation of the
-        # process would wait on cudaMalloc again
-        try:
-            with torch.cuda.stream(stream):
-                self.graph.capture_begin()
-                try:
-                    self.out = program()
-                finally:
-                    self.graph.capture_end()
-        finally:
-            # the capture launched nothing: the wrappers' counts go back
-            self.launches = [{k: c[k] - b[k] for k in c} for c, b in zip(_counters(), before)]
-            for c, b in zip(_counters(), before):
-                c.update(b)
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        with tracing.timed("graph.capture") as span:
+            self.graph = torch.cuda.CUDAGraph()
+            if generator is not None:
+                self.graph.register_generator_state(generator)
+            # capture_begin/end, not the torch.cuda.graph context: that one
+            # empties the allocator's cache, and every later allocation of
+            # the process would wait on cudaMalloc again
+            try:
+                with torch.cuda.stream(stream):
+                    self.graph.capture_begin()
+                    try:
+                        self.out = program()
+                    finally:
+                        self.graph.capture_end()
+            finally:
+                # the capture launched nothing: the wrappers' counts go back
+                self.launches = [{k: c[k] - b[k] for k in c}
+                                 for c, b in zip(_counters(), before)]
+                for c, b in zip(_counters(), before):
+                    c.update(b)
+        counts["captures"] += 1
+        self.capture_ms = span.ms
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
 
     def replay(self) -> None:
         self.graph.replay()
+        counts["replays"] += 1
         for c, n in zip(_counters(), self.launches):
             for k, v in n.items():
                 c[k] += v
@@ -163,7 +193,9 @@ class _Captured:
 
 def _lookup(key):
     entry = _cache.get(key)
-    if entry is not None:
+    if entry is None:
+        counts["misses"] += 1
+    else:
         _cache.move_to_end(key)
     return entry
 
@@ -172,6 +204,7 @@ def _keep(key, entry) -> None:
     _cache[key] = entry
     while len(_cache) > MAX_GRAPHS:
         _cache.popitem(last=False)
+        counts["evictions"] += 1
 
 
 def clear() -> None:
@@ -218,33 +251,39 @@ class _FrameGraph:
             self.rgb.copy_(rgb)
 
     def run(self, depth, pose, rgb, reseed: bool) -> None:
-        self._inputs(depth, pose, rgb)
-        if self.own_generator is not None and reseed:
-            self.own_generator.manual_seed(0)
-        self.captured.replay()
+        with tracing.span("graph.inputs"):
+            self._inputs(depth, pose, rgb)
+            if self.own_generator is not None and reseed:
+                self.own_generator.manual_seed(0)
+        with tracing.span("graph.replay"):
+            self.captured.replay()
 
 
 def integrate_graphed(vol, depth, pose, rgb, update_budget: int, kernel: bool,
                       split_generator: Optional[torch.Generator], reseed: bool = True) -> None:
     """One frame of ``bricks.integrate_bricks`` through its graph, in place
     (the first frame of a key captures the graph and runs as its warm-up).
-    reseed: seed the graph's own split generator 0 before this frame."""
-    dev = vol.device
-    depth = torch.as_tensor(depth, dtype=torch.float32, device=dev)
-    pose = torch.as_tensor(pose, dtype=torch.float32, device=dev)
-    if vol.color is None:
-        rgb = None
-    if rgb is not None:
-        rgb = torch.as_tensor(rgb, dtype=torch.float32, device=dev)
-    jitter = vol.config.num_random_splits > 1
-    key = ("frame", dev, state_key(vol), tuple(depth.shape),
-           None if rgb is None else tuple(rgb.shape), update_budget, kernel,
-           split_generator if jitter else None)
-    entry = _lookup(key)
-    if entry is None:
-        _keep(key, _FrameGraph(vol, depth, pose, rgb, update_budget, kernel, split_generator))
-    else:
-        entry.run(depth, pose, rgb, reseed)
+    reseed: seed the graph's own split generator 0 before this frame. The
+    host span ``frame``."""
+    with tracing.span("frame"):
+        dev = vol.device
+        depth = torch.as_tensor(depth, dtype=torch.float32, device=dev)
+        pose = torch.as_tensor(pose, dtype=torch.float32, device=dev)
+        if vol.color is None:
+            rgb = None
+        if rgb is not None:
+            rgb = torch.as_tensor(rgb, dtype=torch.float32, device=dev)
+        jitter = vol.config.num_random_splits > 1
+        with tracing.span("graph.lookup"):
+            key = ("frame", dev, state_key(vol), tuple(depth.shape),
+                   None if rgb is None else tuple(rgb.shape), update_budget, kernel,
+                   split_generator if jitter else None)
+            entry = _lookup(key)
+        if entry is None:
+            _keep(key, _FrameGraph(vol, depth, pose, rgb, update_budget, kernel,
+                                   split_generator))
+        else:
+            entry.run(depth, pose, rgb, reseed)
 
 
 class _ProgramGraph:
@@ -257,18 +296,23 @@ class _ProgramGraph:
         self.captured = _Captured(device, lambda: program(*self.inputs))
 
     def run(self, inputs):
-        for buf, t in zip(self.inputs, inputs):
-            buf.copy_(t)
-        self.captured.replay()
+        with tracing.span("graph.inputs"):
+            for buf, t in zip(self.inputs, inputs):
+                buf.copy_(t)
+        with tracing.span("graph.replay"):
+            self.captured.replay()
         return self.captured.out
 
 
-def _run_graphed(key, device, program, inputs):
-    """program(*inputs) through the graph kept under `key`: the first call
-    of a key captures it and returns its warm-up's result; a later call
-    copies `inputs` into the static buffers and replays, and returns the
-    graph's outputs, which its next replay overwrites."""
-    entry = _lookup(key)
+def _run_graphed(make_key, device, program, inputs):
+    """program(*inputs) through the graph kept under the key ``make_key()``
+    builds (in the span ``graph.lookup``): the first call of a key captures
+    it and returns its warm-up's result; a later call copies `inputs` into
+    the static buffers and replays, and returns the graph's outputs, which
+    its next replay overwrites."""
+    with tracing.span("graph.lookup"):
+        key = make_key()
+        entry = _lookup(key)
     if entry is None:
         entry = _ProgramGraph(device, program, inputs)
         _keep(key, entry)
@@ -283,9 +327,12 @@ def render_graphed(vol, pose, downsample_by: int, max_steps: int, colored: bool,
     fresh tensors."""
     from .ops.raycast import _render, fresh_result
 
-    key = ("render", vol.device, state_key(vol), downsample_by, max_steps, colored, kernel)
-    return fresh_result(_run_graphed(key, vol.device, lambda p: _render(
-        vol, p, downsample_by, max_steps, colored, kernel), [pose]))
+    out = _run_graphed(lambda: ("render", vol.device, state_key(vol), downsample_by,
+                                max_steps, colored, kernel),
+                       vol.device, lambda p: _render(vol, p, downsample_by, max_steps,
+                                                     colored, kernel), [pose])
+    with tracing.span("render.fresh_result"):
+        return fresh_result(out)
 
 
 def extract_graphed(bv, min_weight: float, color_by_rgb: bool, color_by_confidence: bool,
@@ -297,7 +344,7 @@ def extract_graphed(bv, min_weight: float, color_by_rgb: bool, color_by_confiden
 
     args = (float(min_weight), color_by_rgb, color_by_confidence, kernel, chunk_slots,
             live_chunks, budgets)
-    soup = _run_graphed(("extract", bv.device, state_key(bv)) + args, bv.device,
+    soup = _run_graphed(lambda: ("extract", bv.device, state_key(bv)) + args, bv.device,
                         lambda: _extract_unchecked(bv, *args), [])
     return dataclasses.replace(soup, **{
         f.name: t.clone() for f in dataclasses.fields(soup)
@@ -335,9 +382,11 @@ class _CheckedGraphs:
         Returns (result, replayed)."""
         c = self.graphs.get(key)
         if c is None:
+            counts["misses"] += 1
             c = self.graphs[key] = _Captured(self.bv.device, program)
             while len(self.graphs) > MAX_CHECKED_GRAPHS:
                 del self.graphs[next(k for k in self.graphs if k != "stats")]
+                counts["evictions"] += 1
             out, c.warm = c.warm, None
             return out, False
         self.graphs.move_to_end(key)
@@ -396,8 +445,8 @@ def refine_graphed(kind: str, vol, inputs, downsample_by: int):
     from .refine import _residual, _step
 
     program = _step if kind == "step" else _residual
-    key = ("refine_" + kind, vol.device, state_key(vol), tuple(inputs[1].shape), downsample_by)
-    out = _run_graphed(key, vol.device,
+    out = _run_graphed(lambda: ("refine_" + kind, vol.device, state_key(vol),
+                                tuple(inputs[1].shape), downsample_by), vol.device,
                        lambda *xs: program(vol, *xs, downsample_by=downsample_by), inputs)
     return tuple(t.clone() for t in out) if kind == "step" else out.clone()
 
@@ -418,8 +467,9 @@ def organize_graphed(cfg, points, rgb):
         cols = torch.zeros((npad, 3), dtype=torch.float32, device=dev)
         cols[:n] = rgb
         inputs.append(cols)
-    key = ("organize", dev, cfg.image_width, cfg.image_height, cfg.focal_length_x,
-           cfg.focal_length_y, cfg.principal_point_x, cfg.principal_point_y, npad,
-           rgb is None)
-    depth, rgb_img = _run_graphed(key, dev, lambda *xs: _organize(cfg, *xs), inputs)
+    depth, rgb_img = _run_graphed(
+        lambda: ("organize", dev, cfg.image_width, cfg.image_height, cfg.focal_length_x,
+                 cfg.focal_length_y, cfg.principal_point_x, cfg.principal_point_y, npad,
+                 rgb is None, tracing.enabled()),
+        dev, lambda *xs: _organize(cfg, *xs), inputs)
     return depth.clone(), None if rgb_img is None else rgb_img.clone()

@@ -30,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from .. import tracing
 from ..config import TSDFConfig
 from ..geometry import (div_const, frustum_contains, reproject_point, rigid_inverse,
                         transform_points)
@@ -134,8 +135,11 @@ def integrate(vol: TSDFVolume, depth, pose, rgb: Optional[torch.Tensor] = None, 
       use_kernel: None = the dense fusion kernel (csrc/fusion.cu) on the
         card and the plain version on the CPU; False = the plain version
         anywhere; True on the CPU raises.
+
+    The tracing call ``integrate``.
     """
-    return integrate_slab(vol, depth, pose, rgb, use_kernel=use_kernel)
+    with tracing.call("integrate", vol.device):
+        return integrate_slab(vol, depth, pose, rgb, use_kernel=use_kernel)
 
 
 def integrate_slab(vol: TSDFVolume, depth, pose, rgb: Optional[torch.Tensor] = None,

@@ -33,6 +33,7 @@ import ctypes
 
 import torch
 
+from .. import tracing
 from ..config import COLOR_MODE_LAB, COLOR_MODE_RGB, COLOR_MODE_RGB_NORMALIZED, TSDFConfig
 from ..geometry import frustum_tans, rigid_inverse
 from ..volume import TSDFVolume, color_channels
@@ -45,7 +46,7 @@ COLOR_CODES = {COLOR_MODE_RGB: 1, COLOR_MODE_RGB_NORMALIZED: 2, COLOR_MODE_LAB: 
 
 # Kernel launches since the last reset (plain runs not counted): the brick
 # kernel and the dense one.
-launches = {"fusion": 0, "dense_fusion": 0}
+launches = tracing.counters("fusion_kernel.launches", {"fusion": 0, "dense_fusion": 0})
 
 
 class FusionParams(ctypes.Structure):
@@ -216,7 +217,11 @@ def fuse_dense(vol: TSDFVolume, depth, pose, rgb=None, x0: int = 0, *,
     intervals, an int32 [n * yres, 2] tensor on vol's device, receives the
     z-interval [lo, hi] of each column (x, y), at row x * yres + y (lo > hi
     where empty): on the card the kernel's own cull, on the CPU its plain
-    version :func:`dense_column_intervals`."""
+    version :func:`dense_column_intervals`.
+
+    On the card its host spans are ``fuse_dense.prepare`` (the inputs, the
+    inverse pose, the checks, the kernel's constants and its function) and
+    ``fuse_dense.launch``."""
     cfg, dev = vol.config, vol.device
     nx = vol.sdf.shape[0]
     if intervals is not None:
@@ -235,49 +240,51 @@ def fuse_dense(vol: TSDFVolume, depth, pose, rgb=None, x0: int = 0, *,
         return integrate_slab_plain(vol, depth, pose, rgb, x0)
     from .._build import check, check_tensor, function, stream_ptr
 
-    if not 0 <= x0 <= x0 + nx <= cfg.xres:
-        raise ValueError(f"fuse_dense: planes [{x0}, {x0 + nx}) are not in the grid's "
-                         f"{cfg.xres}")
-    H, W = cfg.image_height, cfg.image_width
-    depth = torch.as_tensor(depth, dtype=torch.float32, device=dev).contiguous()
-    pose_inv = rigid_inverse(torch.as_tensor(pose, dtype=torch.float32, device=dev))
-    with_color = vol.color is not None and rgb is not None
-    if with_color and cfg.color_mode not in COLOR_CODES:
-        raise ValueError(f"fuse_dense: color mode {cfg.color_mode!r} has no color channels")
-    state = [vol.sdf, vol.weight, vol.M, vol.nsample] + ([vol.color] if with_color else [])
-    if torch.is_grad_enabled() and any(t.requires_grad for t in state):
-        raise ValueError("fuse_dense updates the volume in place; a volume that requires "
-                         "grad goes through ops.fusion.integrate_slab")
-    shape = (nx, cfg.yres, cfg.zres)
-    checks = [("depth", depth, torch.float32, (H, W)),
-              ("sdf", vol.sdf, torch.float32, shape),
-              ("weight", vol.weight, torch.float32, shape),
-              ("M", vol.M, torch.float32, shape),
-              ("nsample", vol.nsample, torch.int32, shape)]
-    if with_color:
-        rgb = torch.trunc(torch.as_tensor(rgb, dtype=torch.float32, device=dev)).contiguous()
-        checks += [("color", vol.color, torch.float32, shape + (color_channels(cfg),)),
-                   ("rgb", rgb, torch.float32, (H, W, 3))]
-    for what, t, dt, want in checks:
-        check_tensor(f"fuse_dense: {what}", t, dt, want, dev)
-    pose12 = pose_inv[:3].contiguous()
-    dmax_key = torch.empty((), dtype=torch.int32, device=dev)  # the frame's deepest reading
-    fn = function("fusion", "tsdf_fuse_dense",
-                  [ctypes.POINTER(FusionParams), ctypes.c_int, ctypes.c_int]
-                  + [ctypes.c_void_p] * 11)
-    params = fusion_params(cfg, with_color)
+    with tracing.span("fuse_dense.prepare"):
+        if not 0 <= x0 <= x0 + nx <= cfg.xres:
+            raise ValueError(f"fuse_dense: planes [{x0}, {x0 + nx}) are not in the grid's "
+                             f"{cfg.xres}")
+        H, W = cfg.image_height, cfg.image_width
+        depth = torch.as_tensor(depth, dtype=torch.float32, device=dev).contiguous()
+        pose_inv = rigid_inverse(torch.as_tensor(pose, dtype=torch.float32, device=dev))
+        with_color = vol.color is not None and rgb is not None
+        if with_color and cfg.color_mode not in COLOR_CODES:
+            raise ValueError(f"fuse_dense: color mode {cfg.color_mode!r} has no color channels")
+        state = [vol.sdf, vol.weight, vol.M, vol.nsample] + ([vol.color] if with_color else [])
+        if torch.is_grad_enabled() and any(t.requires_grad for t in state):
+            raise ValueError("fuse_dense updates the volume in place; a volume that requires "
+                             "grad goes through ops.fusion.integrate_slab")
+        shape = (nx, cfg.yres, cfg.zres)
+        checks = [("depth", depth, torch.float32, (H, W)),
+                  ("sdf", vol.sdf, torch.float32, shape),
+                  ("weight", vol.weight, torch.float32, shape),
+                  ("M", vol.M, torch.float32, shape),
+                  ("nsample", vol.nsample, torch.int32, shape)]
+        if with_color:
+            rgb = torch.trunc(torch.as_tensor(rgb, dtype=torch.float32, device=dev)).contiguous()
+            checks += [("color", vol.color, torch.float32, shape + (color_channels(cfg),)),
+                       ("rgb", rgb, torch.float32, (H, W, 3))]
+        for what, t, dt, want in checks:
+            check_tensor(f"fuse_dense: {what}", t, dt, want, dev)
+        pose12 = pose_inv[:3].contiguous()
+        dmax_key = torch.empty((), dtype=torch.int32, device=dev)  # the frame's deepest reading
+        fn = function("fusion", "tsdf_fuse_dense",
+                      [ctypes.POINTER(FusionParams), ctypes.c_int, ctypes.c_int]
+                      + [ctypes.c_void_p] * 11)
+        params = fusion_params(cfg, with_color)
 
-    def ptr(t):
-        return t.data_ptr() if with_color else None
+        def ptr(t):
+            return t.data_ptr() if with_color else None
 
-    err = fn(ctypes.byref(params), x0, nx, pose12.data_ptr(), dmax_key.data_ptr(),
-             depth.data_ptr(), ptr(rgb), vol.sdf.data_ptr(), vol.weight.data_ptr(),
-             vol.M.data_ptr(), vol.nsample.data_ptr(), ptr(vol.color),
-             None if intervals is None else intervals.data_ptr(), stream_ptr(dev))
-    check(err, "fuse_dense")
-    launches["dense_fusion"] += 1
-    for t in state:
-        torch.autograd.graph.increment_version(t)
+    with tracing.span("fuse_dense.launch"):
+        err = fn(ctypes.byref(params), x0, nx, pose12.data_ptr(), dmax_key.data_ptr(),
+                 depth.data_ptr(), ptr(rgb), vol.sdf.data_ptr(), vol.weight.data_ptr(),
+                 vol.M.data_ptr(), vol.nsample.data_ptr(), ptr(vol.color),
+                 None if intervals is None else intervals.data_ptr(), stream_ptr(dev))
+        check(err, "fuse_dense")
+        launches["dense_fusion"] += 1
+        for t in state:
+            torch.autograd.graph.increment_version(t)
     return vol
 
 

@@ -58,6 +58,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import TSDFConfig
 from ..geometry import div_const, transform_points, voxel_center
 from ..volume import resolve_use_kernel
@@ -73,7 +74,7 @@ DEFAULT_MIN_WEIGHT = 2.5
 _BRICK_TOO_LARGE = -1
 
 # Kernel launches since the last reset (plain runs not counted).
-launches = {"corner_halo": 0, "emit": 0}
+launches = tracing.counters("marching_cubes.launches", {"corner_halo": 0, "emit": 0})
 
 # +1-neighbour directions; index (bx<<2)|(by<<1)|bz, as in the halo kernel.
 _NBR_BITS = tuple(((i >> 2) & 1, (i >> 1) & 1, i & 1) for i in range(8))
@@ -641,10 +642,12 @@ def extract_soup_bricks(bv, min_weight: float = DEFAULT_MIN_WEIGHT,
     its first run on this volume and settings, which runs as its warm-up;
     the soup's tensors are fresh. Eager on the CPU and on the
     plain route; False = eager; True raises where the graphs cannot run
-    (the CPU, the plain route)."""
+    (the CPU, the plain route). The tracing call ``extract_soup_bricks``."""
     kernel = _resolve_engine(corner_engine, use_kernel, bv.device)
-    return _extract(bv, min_weight, color_by_rgb, color_by_confidence, kernel, chunk_slots,
-                    cube_budget, tri_budget, live_chunks, budget_hint, check, graph)
+    with tracing.call("extract_soup_bricks", bv.device):
+        return _extract(bv, min_weight, color_by_rgb, color_by_confidence, kernel,
+                        chunk_slots, cube_budget, tri_budget, live_chunks, budget_hint, check,
+                        graph)
 
 
 def _extract(bv, min_weight, color_by_rgb, color_by_confidence, kernel: bool,

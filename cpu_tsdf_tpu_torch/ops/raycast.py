@@ -29,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from .. import tracing
 from ..bricks import gather_color
 from ..config import TSDFConfig
 from ..geometry import div_const, rigid_inverse, rotate_vectors, transform_points, voxel_index
@@ -86,8 +87,9 @@ def render_rays(vol, origins, dirs, max_steps: int = 512, colored: bool = False,
 
     kernel = resolve_use_kernel(use_kernel, vol.device)
     origins, dirs = origins.contiguous(), dirs.contiguous()
-    return rays_from_channels(vol, origins, dirs,
-                              march_rays(vol, origins, dirs, max_steps, kernel), colored)
+    ch = march_rays(vol, origins, dirs, max_steps, kernel)
+    tracing.stage("render.finish", vol.device)
+    return rays_from_channels(vol, origins, dirs, ch, colored)
 
 
 def rays_from_channels(vol, origins, dirs, ch, colored: bool) -> dict:
@@ -128,22 +130,24 @@ def render_view(vol, pose, downsample_by: int = 1, max_steps: int = 512,
     route, unless the volume or the pose requires grad, which takes the
     eager differentiable route; eagerly on the CPU and with the plain
     march; False = eagerly anywhere; True where the graph cannot run (the
-    CPU, the plain march, an input that requires grad) raises."""
+    CPU, the plain march, an input that requires grad) raises. The
+    tracing call ``render_view``."""
     from ..graph import render_graphed, resolve_graph
 
     dev = vol.device
-    kernel = resolve_use_kernel(use_kernel, dev)
-    pose = torch.as_tensor(pose, dtype=torch.float32, device=dev)
-    use_graph = resolve_graph(graph, dev)
-    if use_graph and (not kernel or _needs_grad(vol, pose)):
-        if graph:
-            raise ValueError("render_view: the render graph is the kernel march's forward "
-                             "(the plain march reads its done mask on the host, and a "
-                             "gradient needs the eager route)")
-        use_graph = False
-    if use_graph:
-        return render_graphed(vol, pose, downsample_by, max_steps, colored, kernel)
-    return _render(vol, pose, downsample_by, max_steps, colored, kernel)
+    with tracing.call("render_view", dev):
+        kernel = resolve_use_kernel(use_kernel, dev)
+        pose = torch.as_tensor(pose, dtype=torch.float32, device=dev)
+        use_graph = resolve_graph(graph, dev)
+        if use_graph and (not kernel or _needs_grad(vol, pose)):
+            if graph:
+                raise ValueError("render_view: the render graph is the kernel march's "
+                                 "forward (the plain march reads its done mask on the "
+                                 "host, and a gradient needs the eager route)")
+            use_graph = False
+        if use_graph:
+            return render_graphed(vol, pose, downsample_by, max_steps, colored, kernel)
+        return _render(vol, pose, downsample_by, max_steps, colored, kernel)
 
 
 def _needs_grad(vol, pose) -> bool:
@@ -155,12 +159,17 @@ def _needs_grad(vol, pose) -> bool:
 def _render(vol, pose, downsample_by: int, max_steps: int, colored: bool,
             kernel: bool) -> RenderResult:
     """The render on device tensors: with the kernel march, fixed shapes
-    and no host sync (the graph of ``graph.render_graphed`` captures it)."""
+    and no host sync (the graph of ``graph.render_graphed`` captures it).
+    Its device stages: ``render.rays``, ``render.pack``, ``render.march``
+    and ``render.finish`` (the colors' gather and the assembly)."""
     cfg = vol.config
+    tracing.stage("render.rays", vol.device)
     origins, dirs = camera_rays(cfg, pose, downsample_by)
     r = render_rays(vol, origins, dirs, max_steps, colored, use_kernel=kernel)
-    return assemble_view(cfg, pose, r, cfg.image_height // downsample_by,
+    view = assemble_view(cfg, pose, r, cfg.image_height // downsample_by,
                          cfg.image_width // downsample_by)
+    tracing.stage(None, vol.device)
+    return view
 
 
 def fresh_result(r: RenderResult) -> RenderResult:

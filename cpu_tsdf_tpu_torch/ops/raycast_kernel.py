@@ -36,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from .. import tracing
 from ..bricks import PackedRenderVolume, gather_dw, pack_render
 from ..config import TSDFConfig
 from ..geometry import div_const, in_volume, voxel_index
@@ -45,7 +46,7 @@ NCH = 8
 CHANNELS = ("t_bt", "found", "t_star", "valid", "nvalid", "nx", "ny", "nz")
 
 # Kernel launches since the last reset (plain runs not counted).
-launches = {"raycast": 0}
+launches = tracing.counters("raycast_kernel.launches", {"raycast": 0})
 
 
 class RaycastParams(ctypes.Structure):
@@ -482,15 +483,20 @@ class _MarchRays(torch.autograd.Function):
     of a packed volume), the origins and the dirs.
 
     Forward: the march (the kernel or the plain loop) without autograd, so
-    the crossing's bracket is discrete, as JAX's stop_gradient holds it.
-    Backward: :func:`refine_differentiable` from the saved bracket under
+    the crossing's bracket is discrete, as JAX's stop_gradient holds it;
+    the packing and the march are the device stages ``render.pack`` and
+    ``render.march``. Backward: :func:`refine_differentiable` from the saved bracket under
     autograd (the normals only where their gradient is asked for), its
     cotangents kept on the rays that found a crossing, as the JAX package's
     ``_march_diff_bwd`` does."""
 
     @staticmethod
     def forward(ctx, field, origins, dirs, vol, max_steps, kernel):
-        packed = vol if isinstance(vol, PackedRenderVolume) else pack_render(vol)
+        packed = vol
+        if not isinstance(vol, PackedRenderVolume):
+            tracing.stage("render.pack", vol.device)
+            packed = pack_render(vol)
+        tracing.stage("render.march", vol.device)
         ch = (march if kernel else march_plain)(packed, origins, dirs, max_steps)
         ctx.set_materialize_grads(False)
         ctx.vol = vol

@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import tracing
 from .geometry import div_const
 
 
@@ -134,18 +135,19 @@ def refine_pose_step(vol, pose, depth_obs, downsample_by: int = 1,
     branch: the rotation columns of J are exactly 0 and every step moves
     the translation only (the JAX package's semantics). graph: None = the
     step's CUDA graph on the card, eager on the CPU; False = eager; True on
-    the CPU raises."""
+    the CPU raises. The tracing call ``refine_pose_step``."""
     from .graph import refine_graphed, resolve_graph
 
     dev = vol.device
-    pose = torch.as_tensor(pose, dtype=torch.float32, device=dev)
-    depth_obs = torch.as_tensor(depth_obs, dtype=torch.float32, device=dev)
-    # a fill on the device, not a copy of a host number
-    lr = (lr.to(device=dev, dtype=torch.float32) if torch.is_tensor(lr)
-          else torch.full((), float(lr), dtype=torch.float32, device=dev))
-    if resolve_graph(graph, dev):
-        return refine_graphed("step", vol, [pose, depth_obs, lr], downsample_by)
-    return _step(vol, pose, depth_obs, lr, downsample_by=downsample_by)
+    with tracing.call("refine_pose_step", dev):
+        pose = torch.as_tensor(pose, dtype=torch.float32, device=dev)
+        depth_obs = torch.as_tensor(depth_obs, dtype=torch.float32, device=dev)
+        # a fill on the device, not a copy of a host number
+        lr = (lr.to(device=dev, dtype=torch.float32) if torch.is_tensor(lr)
+              else torch.full((), float(lr), dtype=torch.float32, device=dev))
+        if resolve_graph(graph, dev):
+            return refine_graphed("step", vol, [pose, depth_obs, lr], downsample_by)
+        return _step(vol, pose, depth_obs, lr, downsample_by=downsample_by)
 
 
 def _step(vol, pose, depth_obs, lr, downsample_by: int):

@@ -26,7 +26,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from cpu_tsdf_tpu import bricks as jb
 from cpu_tsdf_tpu_torch import bricks as tb
 from cpu_tsdf_tpu_torch import graph as tg
-from cpu_tsdf_tpu_torch import render_view
+from cpu_tsdf_tpu_torch import integrate, make_volume, render_view, tracing
 from cpu_tsdf_tpu_torch.config import TSDFConfig
 from cpu_tsdf_tpu_torch.convert import brick_volume_from_arrays
 from cpu_tsdf_tpu_torch.ops import raycast_kernel as rk
@@ -81,12 +81,30 @@ def test_recorder_catches_syncs():
     assert all(any(s.startswith(w) for s in rec.syncs) for w in want), rec.syncs
 
 
+@pytest.fixture(params=[False, True], ids=["untraced", "traced"])
+def traced(request):
+    """Tracing off or on (its spans, stages and calls) for the test."""
+    if request.param:
+        tracing.enable()
+    yield request.param
+    tracing.disable()
+
+
+def assert_stamped(traced: bool, want: dict) -> None:
+    """With tracing on, each device stage of `want` was stamped as often as
+    it says."""
+    if traced:
+        stages = tracing.report()["stages"]
+        assert {k: stages[k]["count"] for k in want} == want, stages
+
+
 @pytest.mark.parametrize("splits", [1, 3])
 @pytest.mark.parametrize("B", [4, 8, 16])
-def test_frame_has_no_host_sync(small_cfg, B, splits):
+def test_frame_has_no_host_sync(small_cfg, B, splits, traced):
     """Two eager integrate_bricks frames with color (the second sees live
     bricks in its carve pass and its allocation) run no op that syncs with
-    the host, at bricks of 4, 8 and 16, with and without the jitter."""
+    the host, at bricks of 4, 8 and 16, with and without the jitter, with
+    tracing off and on (then each frame stamps its three stages)."""
     _, cfg, depth, rgb = _scene(small_cfg.with_updates(num_random_splits=splits), "RGB")
     budget = 4096 if B == 4 else 1024
     vol = tb.make_brick_volume(cfg, B, 2 * budget, device="cpu")
@@ -98,13 +116,33 @@ def test_frame_has_no_host_sync(small_cfg, B, splits):
     assert rec.syncs == [], rec.syncs
     assert sum(rec.ops.values()) > 1000 and int(vol.n_active) > 0
     assert not bool(vol.overflowed)
+    assert_stamped(traced, {"frame.activation": 2, "frame.allocation": 2, "frame.batch": 2})
 
 
-def test_render_glue_has_no_host_sync(small_cfg, monkeypatch):
+def test_dense_integrate_has_no_host_sync(small_cfg, traced):
+    """Two dense integrate frames with color (the CPU route: the plain
+    version of the dense kernel, whose wrapper runs on the card) run no op
+    that syncs with the host, with tracing off and on (then each frame is
+    one call)."""
+    _, cfg, depth, rgb = _scene(small_cfg, "RGB")
+    vol = make_volume(cfg, device="cpu")
+    depth_t, rgb_t = torch.as_tensor(depth), torch.as_tensor(rgb)
+    poses = [torch.as_tensor(p, dtype=torch.float32) for p in POSES[:2]]
+    with SyncRecorder() as rec:
+        for p in poses:
+            vol = integrate(vol, depth_t, p, rgb_t)
+    assert rec.syncs == [], rec.syncs
+    assert sum(rec.ops.values()) > 50 and int((vol.weight > 0).sum()) > 0
+    if traced:
+        assert tracing.report()["calls"]["count"] == 2
+
+
+def test_render_glue_has_no_host_sync(small_cfg, monkeypatch, traced):
     """The render glue (pack_render, camera_rays, the color gather,
-    assemble_view) runs no op that syncs with the host. The plain march
-    runs outside the recorder: its early exit reads the done mask, and on
-    the card the kernel takes its place."""
+    assemble_view) runs no op that syncs with the host, with tracing off
+    and on (then the render stamps its stages). The plain march runs
+    outside the recorder: its early exit reads the done mask, and on the
+    card the kernel takes its place."""
     _, cfg, depth, rgb = _scene(small_cfg, "RGB")
     vol = tb.make_brick_volume(cfg, 8, 2048, device="cpu")
     for p in POSES:
@@ -114,12 +152,15 @@ def test_render_glue_has_no_host_sync(small_cfg, monkeypatch):
     origins, dirs = camera_rays(cfg, pose)
     ch = rk.march_plain(tb.pack_render(vol), origins.contiguous(), dirs.contiguous())
     monkeypatch.setattr(rk, "march_plain", lambda *args, **kw: ch)
+    if traced:
+        tracing.reset()
     with SyncRecorder() as rec:
         got = render_view(vol, pose, colored=True)
     assert rec.syncs == [], rec.syncs
     assert int((~got.depth.isnan()).sum()) > 300
     for name in ("points", "normals", "depth", "rgb"):
         assert torch.equal(getattr(got, name).nan_to_num(), getattr(want, name).nan_to_num())
+    assert_stamped(traced, {f"render.{s}": 1 for s in ("rays", "pack", "march", "finish")})
 
 
 def _gapped(jcfg, capacity, live_rows):

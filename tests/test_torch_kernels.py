@@ -772,6 +772,55 @@ def test_frames_and_renders_do_not_sync(cuda_device):
     assert_states_equal(vols[0], vols[1], "eager and graphed frames")
 
 
+def test_traced_graphs_stamp_every_replay(cuda_device):
+    """With tracing on, the graphed sequence and renders capture graphs of
+    their own (the key holds the tracing state) whose stamps run at every
+    replay: each frame and render stamps each of its stages once, the
+    stages lie inside their call, the state and the renders are bit-equal
+    to tracing off, and frames and renders under
+    set_sync_debug_mode("error") raise nothing."""
+    from cpu_tsdf_tpu_torch import graph as tg
+    from cpu_tsdf_tpu_torch import tracing
+
+    cfg = CFG.with_updates(integrate_color=True, color_mode="RGB")
+    frames = _graph_frames(cuda_device, cfg, 3)
+    depths, poses, rgbs = (torch.stack([f[i] for f in frames]) for i in (1, 0, 2))
+    vols = [tb.make_brick_volume(cfg, 8, 4096, device=cuda_device) for _ in range(2)]
+    tb.integrate_bricks_sequence(vols[0], depths, poses, rgbs, 2048)
+    plain = [rc.render_view(vols[0], p, colored=True) for p in poses]
+    tg.clear()
+    tracing.enable()
+    try:
+        tb.integrate_bricks_sequence(vols[1], depths, poses, rgbs, 2048)
+        traced = [rc.render_view(vols[1], p, colored=True) for p in poses]
+        rep = tracing.report()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            tb.integrate_bricks_sequence(vols[1], depths[:1], poses[:1], rgbs[:1], 2048)
+            rc.render_view(vols[1], poses[0], colored=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    finally:
+        tracing.disable()
+    for name in ("activation", "allocation", "batch"):
+        assert rep["stages"][f"frame.{name}"]["count"] == 3
+    for name in ("rays", "pack", "march", "finish"):
+        assert rep["stages"][f"render.{name}"]["count"] == 3
+    calls = rep["calls"]
+    assert calls["count"] == 4 and rep["dropped"] == {"spans": 0, "stamps": 0}
+    staged = sum(v["total_ms"] for v in rep["stages"].values())
+    assert 0 < staged <= calls["call_ms"] and calls["call_ms"] <= calls["window_ms"]
+    assert rep["counters"]["graph.captures"] == 2 and rep["counters"]["graph.replays"] == 4
+    assert {"render_view", "integrate_bricks_sequence", "frame", "graph.lookup",
+            "graph.replay", "render.fresh_result"} <= set(rep["spans"])
+    torch.cuda.synchronize()
+    vols[0] = tb.integrate_bricks_sequence(vols[0], depths[:1], poses[:1], rgbs[:1], 2048)
+    assert_states_equal(vols[0], vols[1], "traced and untraced frames")
+    for a, b in zip(plain, traced):
+        for name in ("points", "normals", "rgb"):
+            assert torch.equal(getattr(a, name).nan_to_num(), getattr(b, name).nan_to_num())
+
+
 def _valid_rows(soup):
     """A soup's valid triangles and their colors, in order."""
     colors = None if soup.colors is None else soup.colors[soup.tri_valid]
