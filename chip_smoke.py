@@ -27,7 +27,11 @@ Phases (any failure raises and exits non-zero before the last line):
      rows below each count exact, its bound beside the former dense
      stack's; emission: the real cube list with the identity and a moved
      global transform, triangles and cube references exact, vertices
-     within 1e-6 with the differing rows logged), with CUDA-event times of
+     within 1e-6 with the differing rows logged; activation: one frame's
+     depth mips, band list and carve list through csrc/activation.cu, every
+     list and count bit-equal, both routes' stage captured in a CUDA graph
+     and timed, beside the stage's bytes and its launches' floor, with
+     registers and spills from ptxas -v), with CUDA-event times of
      both; the extraction's breakdown (brick stats and candidates, corner
      halo, scan + emission + colors + the batch's sync, the call with
      hints and with the default budgets, copy to host) comes before it;
@@ -92,14 +96,15 @@ Phases (any failure raises and exits non-zero before the last line):
      yardstick), make_brick_volume ->
      integrate_bricks over every third pose of the orbit (16 frames) ->
      extract_mesh -> render_view of the same 16 poses, with every kernel's
-     launch count zeroed just before and read just after (fusion one a
-     frame, the MC kernels one an extraction, the march one a render); no
+     launch count zeroed just before and read just after (fusion and each
+     activation kernel one a frame, the MC kernels one an extraction, the
+     march one a render); no
      overflow, the mesh on the sphere and a render's depth on it (medians
      below half a cell); then each kernel against its plain version at that
      brick size (fusion on the middle frame's update list within its
      tolerances, the corner halo exact, the emission's triangles and cube
-     references exact and vertices within 1e-6, the ray march bit-equal),
-     with CUDA-event times and bounds. Frames/s, extraction ms, renders/s,
+     references exact and vertices within 1e-6, the ray march and the
+     activation lists bit-equal), with CUDA-event times and bounds. Frames/s, extraction ms, renders/s,
      triangles and radius error go to a {"brick_sizes": ...} line, the
      kernels' times to their records in the kernels line.
 
@@ -193,6 +198,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -805,6 +811,7 @@ def cli_phase(torch, tmp):
     from cpu_tsdf_tpu_torch.io.checkpoint import checkpoint_meta, load_any
     from cpu_tsdf_tpu_torch.io.ply import load_ply
     from cpu_tsdf_tpu_torch.log import get_logger
+    from cpu_tsdf_tpu_torch.ops import activation_kernel as ak
     from cpu_tsdf_tpu_torch.ops import fusion_kernel as fk
     from cpu_tsdf_tpu_torch.ops import marching_cubes as mc
     from cpu_tsdf_tpu_torch.ops import raycast_kernel as rk
@@ -814,9 +821,12 @@ def cli_phase(torch, tmp):
         fk.launches.update(fusion=0, dense_fusion=0)
         rk.launches["raycast"] = 0
         mc.launches.update(corner_halo=0, emit=0)
+        ak.launches.update(dict.fromkeys(ak.launches, 0))
 
     def counts():
-        return {**fk.launches, "raycast": rk.launches["raycast"], **mc.launches}
+        # activation: the fewest launches of its seven kernels
+        return {**fk.launches, "raycast": rk.launches["raycast"], **mc.launches,
+                "activation": min(ak.launches.values())}
 
     def mean_ms(key, rows):
         return statistics.fmean(r[key] for r in rows) * 1e3
@@ -847,7 +857,8 @@ def cli_phase(torch, tmp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = counts()
-    want = {"fusion": CLI_FRAMES, "dense_fusion": 0, "raycast": CLI_FRAMES // 8}
+    want = {"fusion": CLI_FRAMES, "dense_fusion": 0, "raycast": CLI_FRAMES // 8,
+            "activation": CLI_FRAMES}
     log(f"integrate --sparse: rc {rc}, {wall:.3f} s wall; launches {got}")
     if rc != 0 or not mc_ran(got, want):
         raise AssertionError(f"integrate --sparse: rc {rc}, launches {got}, want {want}")
@@ -904,7 +915,8 @@ def cli_phase(torch, tmp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = counts()
-    want = {"fusion": CLI_DENSE_FRAMES, "dense_fusion": 0, "raycast": 0}
+    want = {"fusion": CLI_DENSE_FRAMES, "dense_fusion": 0, "raycast": 0,
+            "activation": CLI_DENSE_FRAMES}
     npz = os.path.join(out, "volume.npz")
     with np.load(npz) as z:
         overflowed = bool(z["overflowed"])
@@ -971,6 +983,108 @@ def cli_phase(torch, tmp):
     return res
 
 
+def launch_floor_ms(torch, timer, n: int) -> float:
+    """Device ms of n launches that do almost nothing, replayed from one
+    CUDA graph and timed as a route's graph is: the floor of a route of n
+    kernels. Each launch is csrc/trace.cu's one-thread stamp into a scratch
+    ring."""
+    import ctypes
+
+    from cpu_tsdf_tpu_torch._build import check, function, stream_ptr
+
+    stamp = function("trace", "tsdf_trace_stamp",
+                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                      ctypes.c_void_p])
+    dev = torch.device("cuda")
+    ring = torch.zeros((n, 2), dtype=torch.int64, device=dev)
+    head = torch.zeros((1,), dtype=torch.int64, device=dev)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        graph.capture_begin()
+        try:
+            for _ in range(n):
+                check(stamp(ring.data_ptr(), head.data_ptr(), n, 0, stream_ptr(dev)), "stamp")
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    return timer.ms(graph.replay, spin=True)
+
+
+def ptxas_usage(torch_build, name: str) -> dict:
+    """Registers and spill bytes of each kernel of csrc/<name>.cu, from the
+    build's ptxas -v output: {kernel: [registers, spill stores + loads]}."""
+    out, kernel = {}, None
+    for line in torch_build.build_log(name).splitlines():
+        m = re.search(r"Function properties for _Z\d+(\w+?_kernel)", line)
+        if m:
+            kernel = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and kernel:
+            out[kernel] = [None, int(m.group(1)) + int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            out[kernel][0] = int(m.group(1))
+    return out
+
+
+def activation_check(torch, vol, depth, pose_inv, budget, launches, timer):
+    """The activation stage of one frame (depth mips, the band list, the
+    carve list: frame_update_list's half before allocation) through
+    csrc/activation.cu and through the plain code, at vol's shapes: every
+    list and count bit-equal. Each route is captured in a CUDA graph, as
+    the frame's graph runs it, and its replays timed by CUDA events (L2
+    flushed, ~1 ms spin). The bound: the depth image, the brick coords and
+    the tables read once and the lists written once over 3.35 TB/s, beside
+    the floor of the route's seven launches, measured here by
+    launch_floor_ms."""
+    from cpu_tsdf_tpu_torch import _build
+    from cpu_tsdf_tpu_torch import activation as ta
+    from cpu_tsdf_tpu_torch.bricks import carve_budget_for
+
+    cfg, B = vol.config, vol.brick_size
+    nb, carve_budget = vol.bricks_per_axis, carve_budget_for(budget)
+
+    def stage(kernel):
+        mips = ta.depth_mips(depth, ta.mip_base_level(cfg, B), kernel=kernel)
+        band = ta.band_candidate_bricks(cfg, B, nb, mips, pose_inv, budget, kernel=kernel)
+        return band + ta.carve_slots(cfg, B, mips, pose_inv, vol.coords, carve_budget,
+                                     kernel=kernel)
+
+    outs = [stage(k) for k in (True, False)]
+    for name, a, b in zip(("cand", "n_band", "overflow", "carve", "n_carve"), *outs):
+        if not torch.equal(a, b):
+            raise AssertionError(f"activation kernels ({B}^3 bricks): {name} differs from "
+                                 "the plain code")
+    times = []
+    for kernel in (True, False):
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            stage(kernel)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            stage(kernel)
+        times.append(timer.ms(graph.replay, spin=True))
+        del graph
+    n_band, n_carve = int(outs[0][1]), int(outs[0][4])
+    L = ta.depth_mips(depth, ta.mip_base_level(cfg, B)).flat_min.numel()
+    H, W = depth.shape
+    nbytes = (H * W * 4 + vol.coords.numel() * 4 + 4 * L * 4 * 2
+              + (budget + carve_budget) * 4)
+    rec = record("activation", "cpu_tsdf_tpu_torch/csrc/activation.cu", None, launches, 0.0,
+                 times[0], times[1], nbytes, 0)
+    rec["launch_floor_ms"] = launch_floor_ms(torch, timer, 7)
+    rec["ptxas"] = ptxas_usage(_build, "activation")
+    log(f"activation ({B}^3 bricks): band {n_band}, carve {n_carve}, lists bit-equal; "
+        f"graphed stage: kernels {times[0]:.4f} ms, plain {times[1]:.4f} ms; bound "
+        f"{rec['bound_ms']:.5f} ms ({nbytes} bytes), launch floor "
+        f"{rec['launch_floor_ms']:.4f} ms; ptxas {rec['ptxas']}")
+    return rec
+
+
 # Phase 10: brick size -> (capacity, update budget). The capacity holds at
 # least the main path's 2^24 voxels (2^15 rows of 8^3); at 32^3 twice that,
 # since a sphere's band takes about 410 of those bricks (a 128^3 rehearsal
@@ -986,6 +1100,7 @@ def brick_size_phase(torch, cfg, B, poses, depths, rgb, poses_h, timer):
     numbers, with each kernel's record against its plain version."""
     from cpu_tsdf_tpu_torch import bricks, make_brick_volume, pack_render, render_view
     from cpu_tsdf_tpu_torch.geometry import rigid_inverse
+    from cpu_tsdf_tpu_torch.ops import activation_kernel as ak
     from cpu_tsdf_tpu_torch.ops import fusion_kernel as fk
     from cpu_tsdf_tpu_torch.ops import marching_cubes as mc
     from cpu_tsdf_tpu_torch.ops import raycast_kernel as rk
@@ -999,6 +1114,7 @@ def brick_size_phase(torch, cfg, B, poses, depths, rgb, poses_h, timer):
     torch.cuda.synchronize()
     fk.launches["fusion"] = rk.launches["raycast"] = 0
     mc.launches.update(corner_halo=0, emit=0)
+    ak.launches.update(dict.fromkeys(ak.launches, 0))
     t0 = time.perf_counter()
     for i in frames:
         bricks.integrate_bricks(vol, depths[i], poses[i], rgb, budget)
@@ -1012,7 +1128,8 @@ def brick_size_phase(torch, cfg, B, poses, depths, rgb, poses_h, timer):
     views = [render_view(packed, poses[i], colored=True) for i in frames]
     torch.cuda.synchronize()
     t_render = time.perf_counter() - t0
-    launches = {"fusion": fk.launches["fusion"], **mc.launches, "raycast": rk.launches["raycast"]}
+    launches = {"fusion": fk.launches["fusion"], **mc.launches, "raycast": rk.launches["raycast"],
+                "activation": min(ak.launches.values())}
     n_live = int(vol.n_active)
     radius_err = float(np.median(np.abs(np.linalg.norm(verts, axis=1) - 0.5)))
     truth = sphere_depth_world(cfg, poses_h[frames[len(frames) // 2]], radius=0.5)
@@ -1039,7 +1156,7 @@ def brick_size_phase(torch, cfg, B, poses, depths, rgb, poses_h, timer):
                              f"radius error {radius_err})")
     if depth_err >= HALF_CELL_M:
         raise AssertionError(f"bricks of {B}^3: rendered depth off the sphere ({depth_err})")
-    want = {"fusion": len(frames), "raycast": len(frames)}
+    want = {"fusion": len(frames), "raycast": len(frames), "activation": len(frames)}
     if not mc_ran(launches, want):
         raise AssertionError(f"bricks of {B}^3: launches {launches}, want {want}")
     res["extract_ms"] = timer.ms(lambda: mc.extract_mesh(vol, 0.5, color_by_rgb=True))
@@ -1054,6 +1171,8 @@ def brick_size_phase(torch, cfg, B, poses, depths, rgb, poses_h, timer):
                                    torch.trunc(rgb).contiguous(), int(ok.sum()),
                                    launches["fusion"], timer)]
     res["kernels"] += mc_phase(torch, mc, vol, launches, timer)
+    res["kernels"].append(activation_check(torch, vol, depths[i_mid], pose_inv, budget,
+                                           launches["activation"], timer))
     origins, dirs = (t.contiguous() for t in camera_rays(cfg, poses[i_mid]))
     k = rk.march(packed, origins, dirs)
     p = rk.march_plain(packed, origins, dirs)
@@ -1167,6 +1286,7 @@ def parallel_rank(rank: int, port: int, out_dir: str, spec: dict) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     from cpu_tsdf_tpu_torch import (TSDFConfig, integrate, integrate_bricks,
                                     make_brick_volume, make_volume, pack_render, render_view)
+    from cpu_tsdf_tpu_torch.ops import activation_kernel as ak
     from cpu_tsdf_tpu_torch.ops import fusion_kernel as fk
     from cpu_tsdf_tpu_torch.ops import marching_cubes as mc
     from cpu_tsdf_tpu_torch.ops import raycast_kernel as rk
@@ -1206,10 +1326,12 @@ def parallel_rank(rank: int, port: int, out_dir: str, spec: dict) -> None:
     # ---- 1. the slab-sharded brick integrate, merged, against one device ----
     sb = make_sharded_brick_volume(cfg, mesh, 8, spec["capacity"], device=dev)
     fk.launches["fusion"] = 0
+    ak.launches.update(dict.fromkeys(ak.launches, 0))
     frame_ms = [timed(lambda: integrate_bricks_sharded(sb, depths[i], poses[i], mesh,
                                                        spec["budget"], rgb))[1]
                 for i in range(n)]
     res["fusion_launches"] = fk.launches["fusion"]
+    res["activation_launches"] = dict(ak.launches)
     merged, res["merge_ms"] = timed(lambda: merge_sharded(sb))
     single = make_brick_volume(cfg, 8, sb.capacity, device=dev)
     for i in range(n):
@@ -1220,6 +1342,9 @@ def parallel_rank(rank: int, port: int, out_dir: str, spec: dict) -> None:
     per_call = int(dev.type == "cuda")     # CPU tensors take the plain versions, uncounted
     if res["fusion_launches"] != n * per_call:
         raise AssertionError(f"rank {rank}: fusion ran {res['fusion_launches']} times in {n} frames")
+    if set(res["activation_launches"].values()) != {n * per_call}:
+        raise AssertionError(f"rank {rank}: the activation kernels ran "
+                             f"{res['activation_launches']} times in {n} frames")
 
     # the merged volume meshes like one device's (its slot gaps included)
     mc.launches.update(corner_halo=0, emit=0)
@@ -1342,6 +1467,8 @@ def parallel_phase(torch, cfg, spec=None):
            "dense_frame_ms": [r["dense_frame_ms"] for r in ranks],
            "triangles": ranks[0]["triangles"], "mesh_ms": [r["mesh_ms"] for r in ranks],
            "launches_per_rank": {"fusion": [r["fusion_launches"] for r in ranks],
+                                 "activation": [min(r["activation_launches"].values())
+                                                for r in ranks],
                                  **{f"dense_fusion_{k}": [r["dense_launches"][k] for r in ranks]
                                     for k in ranks[0]["dense_launches"]},
                                  **{k: [r["mc_launches"][k] for r in ranks]
@@ -2047,6 +2174,7 @@ def main() -> int:
     from cpu_tsdf_tpu_torch import _build, bricks
     from cpu_tsdf_tpu_torch.geometry import rigid_inverse
     from cpu_tsdf_tpu_torch.io.ply import load_ply, save_ply
+    from cpu_tsdf_tpu_torch.ops import activation_kernel as ak
     from cpu_tsdf_tpu_torch.ops import fusion_kernel as fk
     from cpu_tsdf_tpu_torch.ops import marching_cubes as mc
 
@@ -2072,6 +2200,7 @@ def main() -> int:
     torch.cuda.synchronize()
     fk.launches["fusion"] = 0
     mc.launches.update(corner_halo=0, emit=0)
+    ak.launches.update(dict.fromkeys(ak.launches, 0))
     t0 = time.perf_counter()
     for i in range(n_poses):
         T.integrate_bricks(vol, depths[i], poses[i], rgb, budget)
@@ -2087,7 +2216,8 @@ def main() -> int:
         path = f"{tmp}/mesh.ply"
         save_ply(path, verts, faces, colors)
         v2, f2, _ = load_ply(path)
-    main_launches = {"fusion": fk.launches["fusion"], **mc.launches}
+    main_launches = {"fusion": fk.launches["fusion"], **mc.launches,
+                     "activation": min(ak.launches.values())}
     n_live = int(vol.n_active)
     radius_err = float(np.median(np.abs(np.linalg.norm(verts, axis=1) - 0.5)))
     log(f"main path: {n_poses} frames in {t_fuse:.3f} s = {n_poses / t_fuse:.2f} frames/s "
@@ -2177,6 +2307,8 @@ def main() -> int:
     kernels = [fusion_check(torch, fk, vol, rows, pose_inv, depths[i_mid], rgb_t, n_ok,
                             main_launches["fusion"], timer)]
     kernels += mc_phase(torch, mc, vol, main_launches, timer)
+    kernels.append(activation_check(torch, vol, depths[i_mid], pose_inv, budget,
+                                    main_launches["activation"], timer))
 
     # ---- phase 5: whole-path parity, kernels vs plain engine --------------
     n_par = 8
@@ -2227,7 +2359,11 @@ def main() -> int:
     # ---- phase 12: the budgeted extraction, refine and organize graphs ------
     extraction = extraction_phase(torch, cfg, vol, poses_h[n_poses // 2], smi, breakdown)
     b16, b16_mesh = cli_numbers["brick16_launches"], cli_numbers["brick16_tsdf2mesh_launches"]
-    on_paths = {"fusion": {"main": main_launches["fusion"], "cli": cli_numbers["launches"]["fusion"],
+    on_paths = {"activation": {"main": main_launches["activation"],
+                               "cli": cli_numbers["launches"]["activation"],
+                               "cli_brick_16": b16["activation"],
+                               "parallel_per_rank": par["launches_per_rank"]["activation"]},
+                "fusion": {"main": main_launches["fusion"], "cli": cli_numbers["launches"]["fusion"],
                            "cli_brick_16": b16["fusion"],
                            "parallel_per_rank": par["launches_per_rank"]["fusion"]},
                 "mc_corner_halo": {"main": main_launches["corner_halo"],

@@ -25,14 +25,15 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-KERNELS = ("fusion", "mc_corner_halo", "mc_emit", "raycast", "trace")
+KERNELS = ("activation", "fusion", "mc_corner_halo", "mc_emit", "raycast", "trace")
 
-# --fmad=false: the fusion, ray-march and MC emission kernels must
-# reproduce their plain versions' float32 rounding op for op (a contracted
-# FMA in the projection moves a voxel onto the next depth pixel, see
-# csrc/fusion.cu; in the march it moves a sample onto the next voxel, see
+# --fmad=false: the activation, fusion, ray-march and MC emission kernels
+# must reproduce their plain versions' float32 rounding op for op (a
+# contracted FMA in the projection moves a voxel onto the next depth pixel,
+# see csrc/fusion.cu; in the march it moves a sample onto the next voxel, see
 # csrc/raycast.cu; in the emission it moves a vertex by an ulp, see
-# csrc/mc_emit.cu). No --use_fast_math anywhere.
+# csrc/mc_emit.cu; in activation it moves a footprint's edge onto the next
+# pixel, see csrc/activation.cu). No --use_fast_math anywhere.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

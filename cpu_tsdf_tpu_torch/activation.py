@@ -1,7 +1,11 @@
 """Hierarchical brick activation: which bricks a depth frame may update.
 
-Port of ``cpu_tsdf_tpu.activation`` (its post-round-5 form). Plain tensor
-code on the volume's device; no kernel. The stages:
+Port of ``cpu_tsdf_tpu.activation`` (its post-round-5 form), in plain
+tensor code on the volume's device. The entry points ``depth_mips``,
+``band_candidate_bricks`` and ``carve_slots`` take ``kernel=True`` to run
+as the CUDA kernels of ``csrc/activation.cu`` instead
+(``ops.activation_kernel``; CUDA tensors only), which give the plain
+code's results bit for bit. The stages:
 
   1. depth min/max mip pyramids (NaN-aware);
   2. TILE pass: every tile (TB^3 bricks) projects its bounding sphere into
@@ -80,10 +84,14 @@ def _reduce_to(a, h: int, w: int, red):
     return red(a.reshape(h, H // h, w, W // w), (1, 3))
 
 
-def depth_mips(depth, base_level: int = 0) -> DepthMips:
+def depth_mips(depth, base_level: int = 0, *, kernel: bool = False) -> DepthMips:
     """Min/max mip pyramids over a depth image (NaN = no data), starting at
     ``base_level`` (min/max are exact, so the levels equal the JAX ones
-    whatever the reduction order)."""
+    whatever the reduction order). kernel: csrc/activation.cu's kernels."""
+    if kernel:
+        from .ops import activation_kernel
+
+        return activation_kernel.depth_mips(depth, base_level)
     H, W = depth.shape
     shapes = mip_shapes(H, W)
     base_level = min(base_level, len(shapes) - 1)
@@ -175,6 +183,15 @@ def _band_margins(cfg: TSDFConfig):
             max(cfg.max_dist_neg, cfg.max_dist_pos) + cell)
 
 
+def _cone_tans(cfg: TSDFConfig):
+    """(tan_h, tan_v) of the cone around the optical axis that a sphere
+    straddling the camera plane is tested against (the WIDER side of an
+    off-center principal point)."""
+    W, H = cfg.image_width, cfg.image_height
+    return (max(cfg.principal_point_x + 1.0, W - cfg.principal_point_x) / cfg.focal_length_x + 1.0,
+            max(cfg.principal_point_y + 1.0, H - cfg.principal_point_y) / cfg.focal_length_y + 1.0)
+
+
 def _sphere_footprint(cfg: TSDFConfig, mips: DepthMips, ccx, ccy, ccz, r,
                       need_max=True, dilated=False):
     """Depth bounds under a sphere's conservative image footprint.
@@ -218,8 +235,6 @@ def _band_test(cfg: TSDFConfig, mips: DepthMips, ccx, ccy, ccz, r,
     """Conservative band-intersection test for spheres (camera-frame center,
     radius r): True iff the sphere MAY contain voxels receiving in-band
     updates from this frame."""
-    W, H = cfg.image_width, cfg.image_height
-    fx, fy = cfg.focal_length_x, cfg.focal_length_y
     m_lo, m_hi = _band_margins(cfg)
     z_lo, z_hi = ccz - r, ccz + r
     in_sensor = (z_hi >= cfg.min_sensor_dist) & (z_lo <= cfg.max_sensor_dist)
@@ -231,8 +246,7 @@ def _band_test(cfg: TSDFConfig, mips: DepthMips, ccx, ccy, ccz, r,
     # Sphere straddles the camera plane: a cone test around the optical axis
     # (covering the WIDER side of an off-center principal point) plus the
     # whole-image depth bounds.
-    tan_h = max(cfg.principal_point_x + 1.0, W - cfg.principal_point_x) / fx + 1.0
-    tan_v = max(cfg.principal_point_y + 1.0, H - cfg.principal_point_y) / fy + 1.0
+    tan_h, tan_v = _cone_tans(cfg)
     zc = torch.clamp(z_hi, min=0.0)
     cone = (torch.abs(ccx) - r <= tan_h * zc) & (torch.abs(ccy) - r <= tan_v * zc)
     glob = (z_lo <= mips.global_max + m_lo) & (z_hi >= mips.global_min - m_hi)
@@ -286,6 +300,21 @@ def _compact_chunked(mask_flat, ids, budget: int, chunk: int = 4096):
     return _compact(mask_flat, ids, budget)
 
 
+def carve_slots(cfg: TSDFConfig, B: int, mips: DepthMips, pose_inv, coords,
+                carve_budget: int, *, kernel: bool = False):
+    """Budgeted list of the carve candidates (:func:`carve_candidate_slots`)
+    among the live slots of ``coords`` (coords[:, 0] >= 0): (slots
+    [carve_budget] int32 in ascending order, -1 padded; n_carve, the full
+    count). kernel: csrc/activation.cu's kernels, which give the same list."""
+    if kernel:
+        from .ops import activation_kernel
+
+        return activation_kernel.carve_slots(cfg, B, mips, pose_inv, coords, carve_budget)
+    mask = carve_candidate_slots(cfg, B, mips, pose_inv, coords, coords[:, 0] >= 0)
+    ids = torch.arange(coords.shape[0], dtype=torch.int32, device=coords.device)
+    return _compact_chunked(mask, ids, carve_budget)
+
+
 def pick_tile_bricks(nb: Tuple[int, int, int]) -> int:
     """Tile size (bricks/axis) keeping the tile grid <= ~32^3."""
     tb = 4
@@ -294,9 +323,30 @@ def pick_tile_bricks(nb: Tuple[int, int, int]) -> int:
     return tb
 
 
+def _tile_grid(nb: Tuple[int, int, int], update_budget: int, tile_budget: int, x_slab=None):
+    """The band pass's tiles and budgets: (TB, tiles an axis, the first
+    tested tile id, the number of tested tiles, the tile budget, U2 — the
+    rough list's length). With x_slab = (bx_lo, nbw) only the tile columns
+    that overlap the slab are tested: a slab nbw bricks wide overlaps at
+    most ceil(nbw / TB) + 1 of them."""
+    nbx, nby, nbz = nb
+    TB = pick_tile_bricks(nb)
+    ntx, nty, ntz = -(-nbx // TB), -(-nby // TB), -(-nbz // TB)
+    if x_slab is None:
+        n_tiles, tx_off = ntx * nty * ntz, 0
+    else:
+        bx_lo, nbw = x_slab
+        ncols = min(ntx, -(-nbw // TB) + 1)
+        tx_off = min(bx_lo // TB, ntx - ncols)
+        n_tiles = ncols * nty * ntz
+    tile_budget = min(tile_budget, n_tiles)
+    U2 = min(2 * update_budget, tile_budget * TB ** 3)
+    return TB, (ntx, nty, ntz), tx_off * (nty * ntz), n_tiles, tile_budget, U2
+
+
 def band_candidate_bricks(cfg: TSDFConfig, B: int, nb: Tuple[int, int, int],
                           mips: DepthMips, pose_inv, update_budget: int,
-                          tile_budget: int = 1024, x_slab=None):
+                          tile_budget: int = 1024, x_slab=None, *, kernel: bool = False):
     """Budgeted list of bricks intersecting this frame's truncation band.
 
     Returns (cand [update_budget] int32 brick linear ids (-1 pad), n_band,
@@ -309,22 +359,21 @@ def band_candidate_bricks(cfg: TSDFConfig, B: int, nb: Tuple[int, int, int],
     (``parallel.bricks``). Only the tile columns that overlap the slab are
     tested, so the cost scales with the slab, and the per-brick tests are
     unchanged: the list is the global one filtered to the slab, in the
-    same order."""
+    same order.
+
+    kernel: csrc/activation.cu's kernels, which give the same list."""
+    if kernel:
+        from .ops import activation_kernel
+
+        return activation_kernel.band_candidate_bricks(cfg, B, nb, mips, pose_inv,
+                                                       update_budget, tile_budget, x_slab)
     dev = pose_inv.device
     f32 = torch.float32
     nbx, nby, nbz = nb
-    TB = pick_tile_bricks(nb)
-    ntx, nty, ntz = -(-nbx // TB), -(-nby // TB), -(-nbz // TB)
-    NT = ntx * nty * ntz
-    if x_slab is None:
-        NT_iter, tx_off = NT, 0
-    else:
+    TB, (_, nty, ntz), tile_first, NT_iter, tile_budget, U2 = _tile_grid(
+        nb, update_budget, tile_budget, x_slab)
+    if x_slab is not None:
         bx_lo, nbw = x_slab
-        # a slab nbw bricks wide overlaps at most ceil(nbw / TB) + 1 tile columns
-        ncols = min(ntx, -(-nbw // TB) + 1)
-        tx_off = min(bx_lo // TB, ntx - ncols)
-        NT_iter = ncols * nty * ntz
-    tile_budget = min(tile_budget, NT_iter)
     csx, csy, csz = cfg.cell_size
 
     def cam_center_radius(x0, y0, z0, x1, y1, z1):
@@ -347,7 +396,7 @@ def band_candidate_bricks(cfg: TSDFConfig, B: int, nb: Tuple[int, int, int],
             torch.clamp(z0 + TB * B * csz, max=cfg.zsize))
 
     # ---- tile pass -------------------------------------------------------
-    ti = torch.arange(NT_iter, dtype=torch.int32, device=dev) + tx_off * (nty * ntz)
+    ti = torch.arange(NT_iter, dtype=torch.int32, device=dev) + tile_first
     tile_act = _band_test(cfg, mips, *tile_sphere(ti // (nty * ntz), (ti // ntz) % nty,
                                                   ti % ntz), dilated=True)
     tiles, n_tiles = _compact(tile_act, ti, tile_budget)
@@ -384,7 +433,6 @@ def band_candidate_bricks(cfg: TSDFConfig, B: int, nb: Tuple[int, int, int],
     brick_rough = (in_grid & z_refine
                    & (zb_lo <= cfg.max_sensor_dist) & (zb_hi >= cfg.min_sensor_dist))
 
-    U2 = min(2 * update_budget, tile_budget * TB3)
     blin = (bx * nby + by) * nbz + bz
     rough, n_rough = _compact_chunked(brick_rough.reshape(-1), blin.reshape(-1), U2)
     overflow = overflow | (n_rough > U2)

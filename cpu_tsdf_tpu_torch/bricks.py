@@ -15,8 +15,9 @@ SURVEY §7):
     bricks the frame may update (with ``num_random_splits > 1`` also the
     bricks of jittered surface samples), new ones get slots, a carve pass
     adds live bricks in front of the depth, and the per-voxel update runs
-    over that list: in the CUDA kernel (``ops.fusion_kernel``) on the
-    card, or in the plain engine that is its contract.
+    over that list: activation and the update in the CUDA kernels
+    (``ops.activation_kernel``, ``ops.fusion_kernel``) on the card, or in
+    the plain versions that are their contract.
 
 Row C-1 is reserved and never allocated (the dump row). Capacity and budget
 overflow set ``overflowed``; nothing is dropped silently.
@@ -343,7 +344,8 @@ def _jitter_split_bricks(cfg: TSDFConfig, nb, depth, pose, bids, update_budget: 
 
 
 def frame_update_list(vol: BrickVolume, depth, pose_inv, update_budget: int,
-                      pose=None, split_generator: Optional[torch.Generator] = None):
+                      pose=None, split_generator: Optional[torch.Generator] = None, *,
+                      kernel: bool = False):
     """Activation and allocation for one frame: allocates the frame's new
     band bricks in place and returns the update list (bx, by, bz, slot_ok,
     slots) — band candidates then carve slots — plus the frame's overflow
@@ -353,15 +355,16 @@ def frame_update_list(vol: BrickVolume, depth, pose_inv, update_budget: int,
     pre-split bricks, which need ``pose`` (camera-to-volume) and draw their
     noise from ``split_generator`` (None: a generator seeded 0 on the
     volume's device, anew each frame, as the JAX package uses PRNGKey(0)
-    each frame)."""
-    from .activation import (_compact_chunked, band_candidate_bricks,
-                             carve_candidate_slots, depth_mips, mip_base_level)
+    each frame). kernel: activation (the mips, the band and carve lists)
+    through csrc/activation.cu's kernels, which give the plain code's lists
+    (CUDA tensors only); the jitter stays torch code."""
+    from .activation import band_candidate_bricks, carve_slots, depth_mips, mip_base_level
 
     cfg, B, C = vol.config, vol.brick_size, vol.capacity
     nb = vol.bricks_per_axis
-    mips = depth_mips(depth, mip_base_level(cfg, B))
+    mips = depth_mips(depth, mip_base_level(cfg, B), kernel=kernel)
     bids, _, overflow = band_candidate_bricks(cfg, B, nb, mips, pose_inv,
-                                              update_budget)
+                                              update_budget, kernel=kernel)
     if cfg.num_random_splits > 1:
         if pose is None:
             raise ValueError("num_random_splits > 1 needs the camera pose")
@@ -375,10 +378,8 @@ def frame_update_list(vol: BrickVolume, depth, pose_inv, update_budget: int,
     # carve pass on the PRE-allocation live set: live bricks strictly in
     # front of every depth under their footprint (hpp:189-198)
     carve_budget = carve_budget_for(update_budget)
-    live_pre = vol.coords[:, 0] >= 0
-    carve_mask = carve_candidate_slots(cfg, B, mips, pose_inv, vol.coords, live_pre)
-    carve_slots, n_carve = _compact_chunked(
-        carve_mask, torch.arange(C, dtype=torch.int32, device=vol.device), carve_budget)
+    carve, n_carve = carve_slots(cfg, B, mips, pose_inv, vol.coords, carve_budget,
+                                 kernel=kernel)
     overflow = overflow | (n_carve > carve_budget)
 
     tracing.stage("frame.allocation", vol.device)
@@ -388,8 +389,8 @@ def frame_update_list(vol: BrickVolume, depth, pose_inv, update_budget: int,
     slot_ok = (bids >= 0) & (slots >= 0)
     bc = _brick_coords(bsafe, nb)
 
-    carve_ok = carve_slots >= 0
-    cs_safe = torch.clamp(carve_slots, 0, C - 1)
+    carve_ok = carve >= 0
+    cs_safe = torch.clamp(carve, 0, C - 1)
     cc = torch.clamp(vol.coords[cs_safe.long()], min=0)
     bc = torch.cat([bc, cc], 0)
     return (bc[:, 0], bc[:, 1], bc[:, 2], torch.cat([slot_ok, carve_ok]),
@@ -407,8 +408,9 @@ def integrate_bricks(vol: BrickVolume, depth, pose, rgb=None,
     optional [H, W, 3] 0..255 — tensors or arrays, moved to the volume's
     device. update_budget bounds the band bricks updated per frame;
     exceeding it (or the carve budget, or the capacity) sets `overflowed`.
-    use_kernel: None = the CUDA kernel on the card and the plain engine on
-    the CPU; False = the plain engine anywhere. split_generator: the
+    use_kernel: None = the CUDA kernels (activation and fusion) on the card
+    and their plain versions on the CPU; False = the plain versions
+    anywhere. split_generator: the
     jitter's random source when num_random_splits > 1 (see
     :func:`frame_update_list`). graph: None = on the card, the frame's CUDA
     graph (:mod:`.graph`; captured at the first frame of this volume and
@@ -436,12 +438,14 @@ def fuse_frame(vol: BrickVolume, depth, pose, rgb, update_budget: int, kernel: b
     the batched update, the device stages ``frame.activation``,
     ``frame.allocation`` and ``frame.batch``. Fixed shapes and no host sync
     (the graph of :mod:`.graph` captures it; tests/test_torch_graph.py
-    records its ops), every state update in place."""
+    records its ops), every state update in place. kernel: activation and
+    the batched update through the CUDA kernels (csrc/activation.cu,
+    csrc/fusion.cu)."""
     dev = vol.device
     tracing.stage("frame.activation", dev)
     pose_inv = rigid_inverse(pose)
     bx, by, bz, slot_ok, slots, overflow = frame_update_list(
-        vol, depth, pose_inv, update_budget, pose, split_generator)
+        vol, depth, pose_inv, update_budget, pose, split_generator, kernel=kernel)
     tracing.stage("frame.batch", dev)
     fuse_brick_batch(vol.config, vol.brick_size, bx, by, bz, slot_ok, slots,
                      vol.sdf, vol.weight, vol.M, vol.nsample, vol.color,

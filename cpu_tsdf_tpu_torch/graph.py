@@ -32,15 +32,17 @@ hand-written kernels and their glue run with no per-op host dispatch.
 * **Warm-up and capture.** The first call of a graph runs the program
   eagerly on a side stream (the real frame or render: it loads the
   kernel libraries and the stream's cuBLAS workspace, neither of which may
-  happen during a capture), then captures it on that stream. With tracing
-  on, the warm-up runs on the caller's stream instead, and one small
-  matrix product on the side stream gives cuBLAS that stream's workspace:
-  on the H100 hosts measured (PERF.md) the warm-up's burst of
-  launches on the side stream slows every graph replay on the caller's
-  stream by ~25 % for the next 2-36 s, which the traced replays would
-  read as stage time. (Off, the side stream keeps the warm-up's memory
-  apart: on the caller's stream the card tests' many large graphs ran out
-  of memory.)
+  happen during a capture), then captures it on that stream. A frame
+  graph's warm-up, and with tracing on every graph's, runs on the
+  caller's stream instead, and one small matrix product on the side
+  stream gives cuBLAS that stream's workspace: on the H100 hosts measured
+  (PERF.md) the warm-up's burst of launches on the side stream slows
+  every graph replay on the caller's stream by ~0.26 us a node for the
+  next 2-36 s, which a scan's frames would pay and the traced replays
+  would read as stage time. Such a capture first empties the allocator's
+  cache: otherwise the card tests' captures ran out of memory with the
+  card full of the caller's cached blocks. The other graphs' warm-ups
+  stay on the side stream and leave the cache as it is.
 * **Cache.** Graphs are kept by the device, the address, shape and type of
   every state tensor of the volume, the config, the brick size, the input
   shapes and the program's settings (a frame's budget, color, kernel route
@@ -64,8 +66,9 @@ hand-written kernels and their glue run with no per-op host dispatch.
   ``PRNGKey(0)`` each frame) and once before a sequence (fresh jitter each
   frame).
 * **Launch counts.** The kernels a capture records are counted at every
-  replay in the wrappers' counters (``fusion_kernel.launches``,
-  ``raycast_kernel.launches``, ``marching_cubes.launches``); the capture
+  replay in the wrappers' counters (``activation_kernel.launches``,
+  ``fusion_kernel.launches``, ``raycast_kernel.launches``,
+  ``marching_cubes.launches``); the capture
   itself launches nothing. The tracing counters :data:`counts` count
   captures, replays, lookups that found no graph (misses) and graphs
   dropped from the cache (evictions).
@@ -114,9 +117,10 @@ def resolve_graph(graph: Optional[bool], device: torch.device) -> bool:
 
 
 def _counters():
-    from .ops import fusion_kernel, marching_cubes, raycast_kernel
+    from .ops import activation_kernel, fusion_kernel, marching_cubes, raycast_kernel
 
-    return (fusion_kernel.launches, raycast_kernel.launches, marching_cubes.launches)
+    return (activation_kernel.launches, fusion_kernel.launches, raycast_kernel.launches,
+            marching_cubes.launches)
 
 
 def state_key(vol) -> tuple:
@@ -139,24 +143,32 @@ def _side_stream(device) -> torch.cuda.Stream:
 
 class _Captured:
     """`program` warmed up and captured: ``warm`` is the warm-up's result,
-    ``out`` the graph's static outputs. Records the capture's wall ms, the
+    ``out`` the graph's static outputs; warm_here: warm up on the caller's
+    stream (with tracing on, always). Records the capture's wall ms, the
     bytes of its private memory pool (device memory reserved by the
     capture) and the kernel launches of one replay."""
 
-    def __init__(self, device, program, generator: Optional[torch.Generator] = None):
+    def __init__(self, device, program, generator: Optional[torch.Generator] = None,
+                 warm_here: bool = False):
         stream = _side_stream(device)
-        traced = tracing.enabled()
-        if traced:
+        warm_here = warm_here or tracing.enabled()
+        if warm_here:
             self.warm = program()
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
-            if traced:
+            if warm_here:
                 one = torch.ones((2, 2), device=device)
                 one @ one                   # cuBLAS's workspace for this stream
             else:
                 self.warm = program()
         torch.cuda.current_stream(device).wait_stream(stream)
         torch.cuda.synchronize(device)
+        if warm_here:
+            # a capture cannot hand cached blocks back to the card when its
+            # pool needs memory; a warm-up on the side stream that runs short
+            # hands them back itself, one on the caller's stream reuses that
+            # stream's blocks and may leave the card full of them
+            torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(device)
         before = [dict(c) for c in _counters()]
         with tracing.timed("graph.capture") as span:
@@ -242,7 +254,7 @@ class _FrameGraph:
         self.captured = _Captured(
             dev, lambda: fuse_frame(vol, self.depth, self.pose, self.rgb, update_budget,
                                     kernel, split_generator),
-            split_generator if jitter else None)
+            split_generator if jitter else None, warm_here=True)
 
     def _inputs(self, depth, pose, rgb) -> None:
         self.depth.copy_(depth)

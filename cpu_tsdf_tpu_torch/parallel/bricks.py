@@ -111,10 +111,9 @@ def integrate_bricks_sharded(bv: ShardedBrickVolume, depth, pose, mesh=None,
     hold the frustum's whole near field) and 1.5x below (the JAX package's
     sizing). A slab denser than its budget, or a rank out of rows, sets
     ``overflowed`` on every rank (MAX over the slabs); nothing is dropped
-    silently. use_kernel: None = the CUDA fusion kernel on the card and the
-    plain engine on the CPU. `mesh` defaults to bv's."""
-    from ..activation import (_compact_chunked, band_candidate_bricks,
-                              carve_candidate_slots, depth_mips, mip_base_level)
+    silently. use_kernel: None = the CUDA kernels (activation and fusion) on
+    the card and their plain versions on the CPU. `mesh` defaults to bv's."""
+    from ..activation import band_candidate_bricks, carve_slots, depth_mips, mip_base_level
     from ..bricks import _brick_coords, carve_budget_for, fuse_brick_batch
 
     mesh = bv.mesh if mesh is None else mesh
@@ -134,16 +133,15 @@ def integrate_bricks_sharded(bv: ShardedBrickVolume, depth, pose, mesh=None,
     bx0, nbx_local = bv.x_slab
 
     # ---- slab-restricted band activation ----
-    mips = depth_mips(depth, mip_base_level(cfg, B))
+    mips = depth_mips(depth, mip_base_level(cfg, B), kernel=kernel)
     cand, _, overflow = band_candidate_bricks(cfg, B, nb, mips, pose_inv,
-                                              budget_per_device, x_slab=(bx0, nbx_local))
+                                              budget_per_device, x_slab=(bx0, nbx_local),
+                                              kernel=kernel)
     # the carve pass runs on the PRE-allocation live set (band-new bricks
     # cannot be in front of the band)
     carve_budget = carve_budget_for(budget_per_device)
-    live_pre = bv.coords[:, 0] >= 0
-    carve_mask = carve_candidate_slots(cfg, B, mips, pose_inv, bv.coords, live_pre)
-    carve_slots, n_carve = _compact_chunked(
-        carve_mask, torch.arange(C, dtype=torch.int32, device=dev), carve_budget)
+    carve, n_carve = carve_slots(cfg, B, mips, pose_inv, bv.coords, carve_budget,
+                                 kernel=kernel)
     overflow = overflow | (n_carve > carve_budget)
 
     # ---- local allocation: the k-th new brick takes local row n_active + k
@@ -167,8 +165,8 @@ def integrate_bricks_sharded(bv: ShardedBrickVolume, depth, pose, mesh=None,
     bc = _brick_coords(gsafe, nb)
 
     # ---- the carve slots, then the SAME batched update as one device ----
-    carve_ok = carve_slots >= 0
-    cs_safe = torch.clamp(carve_slots, 0, C - 1)
+    carve_ok = carve >= 0
+    cs_safe = torch.clamp(carve, 0, C - 1)
     cc = torch.clamp(bv.coords[cs_safe.long()], min=0)
     bc = torch.cat([bc, cc], 0)
     fuse_brick_batch(cfg, B, bc[:, 0], bc[:, 1], bc[:, 2], torch.cat([slot_ok, carve_ok]),

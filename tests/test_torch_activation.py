@@ -6,6 +6,9 @@ come out EXACTLY as in cpu_tsdf_tpu.activation — same ids in the same
 the wide-FOV off-centre scene and the disocclusion (carve) scene.
 """
 
+import ctypes
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,7 +21,8 @@ from cpu_tsdf_tpu.geometry import rigid_inverse as j_rigid_inverse
 from cpu_tsdf_tpu.synthetic import plane_depth, sphere_depth
 from cpu_tsdf_tpu_torch import activation as ta
 from cpu_tsdf_tpu_torch.config import TSDFConfig
-from cpu_tsdf_tpu_torch.geometry import rigid_inverse
+from cpu_tsdf_tpu_torch.geometry import rigid_inverse, transform_points
+from cpu_tsdf_tpu_torch.synthetic import sphere_depth_world
 
 from test_fusion import tilted_pose
 import torch_common  # noqa: F401  (one intra-op thread)
@@ -112,3 +116,171 @@ def test_compact_chunked_random_masks():
                                              budget)
                 np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
                 assert int(tn) == int(jn)
+
+
+# ---------------------------------------------------------------------------
+# the kernel route (csrc/activation.cu runs only on the card: these hold
+# its host side, and check that the card tests' cases take their paths)
+# ---------------------------------------------------------------------------
+
+from cpu_tsdf_tpu_torch import _build  # noqa: E402
+from cpu_tsdf_tpu_torch import bricks as tb  # noqa: E402
+from cpu_tsdf_tpu_torch.ops import activation_kernel as ak  # noqa: E402
+
+from torch_common import ACTIVATION_CASES, activation_case  # noqa: E402
+
+# which compaction of a frame overflows in each case: (tiles, rough list
+# U2, band list, carve list), on the case's last frame
+_OVERFLOWS = {"tile_budget": (True, False, False, False),
+              "rough_budget": (False, True, False, False),
+              "update_budget": (False, False, True, False),
+              "carve_budget": (False, False, False, True)}
+
+
+@pytest.mark.parametrize("case", list(ACTIVATION_CASES))
+def test_activation_cases_take_their_paths(monkeypatch, case):
+    """The plain code on each of the card tests' activation cases
+    (tests/torch_common.py) overflows exactly the budget the case names
+    (the tile budget with the case's own, through band_candidate_bricks;
+    the others through frame_update_list), lists bricks, and the camera
+    inside the volume lists tiles that straddle the camera plane. A frame
+    on the CPU takes the plain route: no activation kernel launches."""
+    cfg, B, frames, budget, tile_budget, capacity = activation_case(case)
+    vol = tb.make_brick_volume(cfg, B, capacity, device="cpu")
+    seen = []
+    compact = ta._compact
+
+    def spy(mask, ids, n_max):
+        out, n = compact(mask, ids, n_max)
+        seen.append(int(n) > n_max)
+        return out, n
+
+    monkeypatch.setattr(ta, "_compact", spy)
+    before = dict(ak.launches)
+    for pose, depth in frames:
+        d, p = torch.from_numpy(depth), torch.from_numpy(pose)
+        pinv = rigid_inverse(p)
+        mips = ta.depth_mips(d, ta.mip_base_level(cfg, B))
+        seen.clear()
+        _, n_band, overflow = ta.band_candidate_bricks(cfg, B, vol.bricks_per_axis, mips, pinv,
+                                                       budget, tile_budget)
+        tile_over = seen[0]
+        seen.clear()
+        *_, frame_over = tb.frame_update_list(vol, d, pinv, budget, p)
+    assert ak.launches == before
+    want = _OVERFLOWS.get(case, (False,) * 4)
+    assert (tile_over, *seen[1:]) == want, seen
+    assert bool(frame_over) == any(want[1:]) and bool(overflow) == any(want[:3])
+    assert int(n_band) > 0 or case == "carve_budget"
+    if case == "dropouts":
+        hit = ~np.isnan(sphere_depth_world(cfg, frames[-1][0], radius=0.5))
+        assert 0.04 < float(np.isnan(frames[-1][1])[hit].mean()) < 0.06
+    if case == "inside":
+        # band-active tiles whose sphere reaches behind the camera plane
+        nb, TB = vol.bricks_per_axis, ta.pick_tile_bricks(vol.bricks_per_axis)
+        t = torch.arange(nb[0] // TB * (nb[1] // TB) * (nb[2] // TB), dtype=torch.int32)
+        nt = nb[1] // TB
+        ext = TB * B * cfg.cell_size[0]
+        lo = [(t // (nt * nt)).float() * ext, ((t // nt) % nt).float() * ext,
+              (t % nt).float() * ext]
+        c = [x + 0.5 * ext - cfg.xsize / 2 for x in lo]
+        r = 0.5 * float(np.sqrt(3.0)) * ext
+        ccx, ccy, ccz = transform_points(pinv, *c)
+        act = ta._band_test(cfg, mips, ccx, ccy, ccz, torch.full_like(ccx, r), dilated=True)
+        assert int((act & (ccz - r <= 1e-3)).sum()) > 5
+
+
+def test_kernel_route_refuses_cpu_tensors():
+    """kernel=True (use_kernel=True) on CPU tensors raises at every entry
+    point: the activation kernels have no CPU mode and nothing falls back."""
+    cfg, B, frames, budget, _, capacity = activation_case("tilted")
+    pose, depth = (torch.from_numpy(a) for a in frames[0])
+    pinv = rigid_inverse(pose)
+    vol = tb.make_brick_volume(cfg, B, capacity, device="cpu")
+    mips = ta.depth_mips(depth, ta.mip_base_level(cfg, B))
+    calls = [lambda: ta.depth_mips(depth, 4, kernel=True),
+             lambda: ta.band_candidate_bricks(cfg, B, vol.bricks_per_axis, mips, pinv, budget,
+                                              kernel=True),
+             lambda: ta.carve_slots(cfg, B, mips, pinv, vol.coords, 256, kernel=True),
+             lambda: tb.frame_update_list(vol, depth, pinv, budget, pose, kernel=True),
+             lambda: tb.integrate_bricks(vol, depth, pose, None, budget, use_kernel=True)]
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA device"):
+            call()
+    assert int(vol.n_active) == 0
+
+
+def test_build_names_activation_without_building():
+    """_build.KERNELS names the activation source, and importing the port
+    and running CPU frames builds and loads nothing."""
+    assert "activation" in _build.KERNELS
+    assert (_build.CSRC / "activation.cu").exists()
+    cfg, B, frames, budget, _, capacity = activation_case("tilted")
+    vol = tb.make_brick_volume(cfg, B, capacity, device="cpu")
+    tb.integrate_bricks(vol, frames[0][1], frames[0][0], None, budget)
+    assert int(vol.n_active) > 0 and not _build._libs
+
+
+def _struct_fields(name):
+    """(type, field) pairs of `struct name` in csrc/activation.cu, arrays
+    as type[n]."""
+    src = (_build.CSRC / "activation.cu").read_text()
+    body = re.search(r"struct %s \{(.*?)\n\};" % name, src, re.S).group(1)
+    out = []
+    for line in body.splitlines():
+        decl = line.split("//")[0].strip().rstrip(";")
+        if not decl:
+            continue
+        kind, names = decl.split(None, 1)
+        for n in names.split(","):
+            m = re.fullmatch(r"(\w+)(?:\[(\w+)\])?", n.strip())
+            out.append((kind if m.group(2) is None else f"{kind}[{m.group(2)}]", m.group(1)))
+    return out
+
+
+@pytest.mark.parametrize("struct", ["MipLayout", "ActParams"])
+def test_kernel_structs_mirror_the_source(struct):
+    """The ctypes structures of ops/activation_kernel.py name csrc/
+    activation.cu's struct fields in order, with their types."""
+    kinds = {ctypes.c_float: "float", ctypes.c_int: "int",
+             ctypes.c_int * ak.MAX_LEVELS: "int[kMaxLevels]"}
+    got = [(kinds[t], n) for n, t in getattr(ak, struct)._fields_]
+    assert got == _struct_fields(struct)
+
+
+@pytest.mark.parametrize("H,W", [(120, 160), (480, 640), (30, 40), (1, 1), (5, 300)])
+def test_mip_layout_matches_depth_mips(H, W):
+    """The kernels' pyramid layout (offsets, widths, heights, the base
+    texel's cell) is the plain depth_mips' at every base level."""
+    depth = torch.from_numpy(np.random.default_rng(0).uniform(0.5, 2.0, (H, W)).astype(np.float32))
+    Hp, Wp = ta.mip_shapes(H, W)[0]
+    for base in range(12):
+        m = ta.depth_mips(depth, base)
+        L = ak.mip_layout(H, W, base)
+        n = L.n_levels
+        assert (L.base_level, n, L.n_texels) == (m.base_level, m.n_levels, m.flat_min.numel())
+        assert list(L.offsets[:n]) == m.offsets.tolist()
+        assert list(L.widths[:n]) == m.widths.tolist()
+        sizes = [L.heights[k] * L.widths[k] for k in range(n)]
+        assert [L.offsets[k] + sizes[k] for k in range(n - 1)] == list(L.offsets[1:n])
+        assert (Hp >> L.cell_h_shift, Wp >> L.cell_w_shift) == (L.heights[0], L.widths[0])
+
+
+def test_act_params_round_the_plain_constants():
+    """Each kernel constant is the float32 rounding of the double the plain
+    code computes, and the tile grid is the plain band pass's, slab or not."""
+    cfg = activation_case("tilted")[0]
+    f32 = lambda v: float(np.float32(v))  # noqa: E731
+    m_lo, m_hi = ta._band_margins(cfg)
+    tan_h, tan_v = ta._cone_tans(cfg)
+    for slab in (None, (3, 10)):
+        p = ak.act_params(cfg, 8, (16, 16, 16), 2048, 1024, slab)
+        TB, nt, first, n_tiles, tile_budget, U2 = ta._tile_grid((16, 16, 16), 2048, 1024, slab)
+        assert (1 << p.tb_shift, (p.ntx, p.nty, p.ntz), p.tile_first, p.n_tiles,
+                p.tile_budget, p.rough_budget) == (TB, nt, first, n_tiles, tile_budget, U2)
+        assert (p.slab_lo, p.slab_hi) == ((0, 16) if slab is None else (3, 13))
+    assert (p.m_lo, p.m_hi, p.tan_h, p.tan_v) == (f32(m_lo), f32(m_hi), f32(tan_h), f32(tan_v))
+    cs = cfg.cell_size[0]
+    assert (p.tile_x, p.brick_x, p.carve_half_x, p.half_x) == (
+        f32(4 * 8 * cs), f32(8 * cs), f32(0.5 * 8 * cs), f32(cfg.xsize / 2))
+    assert p.carve_r == f32(0.5 * float(np.sqrt(3 * (8 * cs) ** 2)))

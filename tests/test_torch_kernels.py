@@ -18,15 +18,18 @@ import numpy as np
 import pytest
 import torch
 
+from cpu_tsdf_tpu_torch import activation as ta
 from cpu_tsdf_tpu_torch import bricks as tb
 from cpu_tsdf_tpu_torch.config import TSDFConfig
+from cpu_tsdf_tpu_torch.geometry import rigid_inverse
+from cpu_tsdf_tpu_torch.ops import activation_kernel as ak
 from cpu_tsdf_tpu_torch.ops import fusion_kernel as fk
 from cpu_tsdf_tpu_torch.ops import marching_cubes as mc
 from cpu_tsdf_tpu_torch.ops import raycast as rc
 from cpu_tsdf_tpu_torch.ops import raycast_kernel as rk
 from cpu_tsdf_tpu_torch.synthetic import orbit_pose, sphere_depth_world
 
-from torch_common import CULL_CASES, cull_frame
+from torch_common import ACTIVATION_CASES, CULL_CASES, activation_case, cull_frame
 
 CFG = TSDFConfig(xres=128, yres=128, zres=128, xsize=1.6, ysize=1.6, zsize=1.6,
                  max_dist_pos=0.04, max_dist_neg=0.04, min_sensor_dist=0.1,
@@ -1273,3 +1276,141 @@ def test_dense_kernel_64bit_offsets(cuda_device):
     torch.cuda.synchronize()
     assert int((p.weight > 0).sum()) > 1000 and int((p.color > 0).sum()) > 1000
     assert_dense_equal(k, p, "RGB", "the last 8 planes")
+
+
+# ---------------------------------------------------------------------------
+# brick activation (csrc/activation.cu)
+# ---------------------------------------------------------------------------
+
+def assert_same(a, b, what):
+    assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), (what, a, b)
+
+
+def activation_routes_equal(dev, case):
+    """Every frame of an activation case (tests/torch_common.py) through
+    the kernels and the plain code, on `dev`: the mips' tables and level
+    table, the band list under the case's tile budget, the carve list, and
+    frame_update_list's batch list and overflow after allocation with the
+    two volumes' allocation state, all bit-equal. Returns the kernel
+    launches each frame made and the last frame's plain band count and
+    overflow."""
+    cfg, B, frames, budget, tile_budget, capacity = activation_case(case)
+    vols = [tb.make_brick_volume(cfg, B, capacity, device=dev) for _ in range(2)]
+    nb = vols[0].bricks_per_axis
+    carve_budget = tb.carve_budget_for(budget)
+    before = dict(ak.launches)
+    for pose, depth in frames:
+        p = torch.as_tensor(pose, device=dev)
+        d = torch.as_tensor(depth, device=dev)
+        pinv = rigid_inverse(p)
+        mips = [ta.depth_mips(d, ta.mip_base_level(cfg, B), kernel=k) for k in (True, False)]
+        for name in mips[1]._fields:
+            x, y = getattr(mips[0], name), getattr(mips[1], name)
+            if isinstance(y, torch.Tensor):
+                assert_same(x, y, name)
+            else:
+                assert x == y, name
+        band = [ta.band_candidate_bricks(cfg, B, nb, m, pinv, budget, tile_budget, kernel=k)
+                for m, k in zip(mips, (True, False))]
+        for x, y, name in zip(*band, ("cand", "n_band", "overflow")):
+            assert_same(x, y, name)
+        coords = vols[1].coords
+        carve = [ta.carve_slots(cfg, B, m, pinv, coords, carve_budget, kernel=k)
+                 for m, k in zip(mips, (True, False))]
+        for x, y, name in zip(*carve, ("carve", "n_carve")):
+            assert_same(x, y, name)
+        lists = [tb.frame_update_list(v, d, pinv, budget, p, kernel=k)
+                 for v, k in zip(vols, (True, False))]
+        for x, y, name in zip(*lists, ("bx", "by", "bz", "slot_ok", "slots", "overflow")):
+            assert_same(x, y, name)
+        for name in ("brick_map", "coords", "n_active", "overflowed"):
+            assert_same(getattr(vols[0], name), getattr(vols[1], name), name)
+    made = {k: (ak.launches[k] - before[k]) // len(frames) for k in before}
+    return made, int(band[1][1]), bool(band[1][2])
+
+
+@pytest.mark.parametrize("case", list(ACTIVATION_CASES))
+def test_activation_kernels_match_plain(cuda_device, case):
+    """csrc/activation.cu against the plain activation on the card, bit for
+    bit, frame by frame (activation_routes_equal): the orbit at bricks of
+    4, 8, 16 and 32, a tilted camera, NaN dropouts, a camera inside the
+    volume, each budget overflowing alone. Each kernel launches twice a
+    frame (the pieces, then frame_update_list)."""
+    made, n_band, _ = activation_routes_equal(cuda_device, case)
+    assert made == dict.fromkeys(made, 2), made
+    assert n_band > 0 or case == "carve_budget"
+
+
+def test_depth_mips_kernels_every_base_level(cuda_device):
+    """The mip kernels' tables, level table and global bounds equal the
+    plain depth_mips at every base level (a base texel of 1 to 2^18
+    pixels: texels a warp shares, a warp's, a block's, several blocks'
+    worth) on images with NaN dropouts, +inf readings, an all-NaN row
+    band and sizes that are not powers of two."""
+    rng = np.random.default_rng(3)
+    for H, W in ((120, 160), (30, 40), (480, 640), (5, 300)):
+        depth = rng.uniform(0.3, 3.0, (H, W)).astype(np.float32)
+        depth[rng.uniform(size=depth.shape) < 0.05] = np.nan
+        depth[H // 3: H // 2] = np.nan
+        depth[0, W - 1] = np.inf
+        d = torch.as_tensor(depth, device=cuda_device)
+        for base in range(10):
+            k, p = (ta.depth_mips(d, base, kernel=kernel) for kernel in (True, False))
+            for name in p._fields:
+                x, y = getattr(k, name), getattr(p, name)
+                if isinstance(y, torch.Tensor):
+                    assert_same(x, y, (H, W, base, name))
+                else:
+                    assert x == y, (H, W, base, name)
+
+
+@pytest.mark.parametrize("slab", [(0, 4), (4, 5), (12, 4), (3, 10)])
+def test_activation_kernels_slab_matches_plain(cuda_device, slab):
+    """band_candidate_bricks with an x_slab, as the sharded route calls it
+    (bricks of 8 on 128^3: 16 bricks an axis, tiles of 4): the kernels'
+    list equals the plain code's, and is the global list filtered to the
+    slab."""
+    cfg, B, frames, budget, tile_budget, _ = activation_case("tilted")
+    pose, depth = frames[0]
+    pinv = rigid_inverse(torch.as_tensor(pose, device=cuda_device))
+    d = torch.as_tensor(depth, device=cuda_device)
+    mips = ta.depth_mips(d, ta.mip_base_level(cfg, B), kernel=True)
+    nb = (16, 16, 16)
+    out = [ta.band_candidate_bricks(cfg, B, nb, mips, pinv, budget, x_slab=slab, kernel=k)
+           for k in (True, False)]
+    for x, y, name in zip(*out, ("cand", "n_band", "overflow")):
+        assert_same(x, y, name)
+    whole = ta.band_candidate_bricks(cfg, B, nb, mips, pinv, budget, kernel=True)[0]
+    whole = whole[whole >= 0]
+    bx = whole // (16 * 16)
+    want = whole[(bx >= slab[0]) & (bx < slab[0] + slab[1])]
+    n = int(out[0][1])
+    assert n > 0 and torch.equal(out[0][0][:n], want)
+
+
+def test_graphed_activation_pass_does_not_sync(cuda_device):
+    """A graphed 48-frame orbit pass (128^3, bricks of 8, RGB) through the
+    kernel route, repeated under set_sync_debug_mode("error"): nothing
+    syncs, every activation kernel counts one launch a frame in both
+    passes, and the state equals the eager kernel route's bit for bit."""
+    cfg = CFG.with_updates(integrate_color=True, color_mode="RGB")
+    frames = _graph_frames(cuda_device, cfg, 48)
+    depths, poses, rgbs = (torch.stack([f[i] for f in frames]) for i in (1, 0, 2))
+    vols = [tb.make_brick_volume(cfg, 8, 4096, device=cuda_device) for _ in range(2)]
+    before = dict(ak.launches)
+    tb.integrate_bricks_sequence(vols[0], depths, poses, rgbs, 2048)
+    torch.cuda.synchronize()
+    assert {k: ak.launches[k] - before[k] for k in before} == dict.fromkeys(before, 48)
+    before = dict(ak.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tb.integrate_bricks_sequence(vols[0], depths, poses, rgbs, 2048)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert {k: ak.launches[k] - before[k] for k in before} == dict.fromkeys(before, 48)
+    for _ in range(2):
+        tb.integrate_bricks_sequence(vols[1], depths, poses, rgbs, 2048, graph=False)
+    torch.cuda.synchronize()
+    assert int(vols[0].n_active) > 500
+    assert_states_equal(vols[0], vols[1], "graphed and eager kernel routes")

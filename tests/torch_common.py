@@ -76,3 +76,56 @@ def cull_frame(case):
     elif edit == "inf":
         depth[cfg.image_height // 2, cfg.image_width // 3] = np.inf
     return cfg, pose.astype(np.float32), depth, x0, nx
+
+
+# Brick activation's cases, without JAX: the CPU tests check with the plain
+# code that each case takes the path its name gives, the card tests hold
+# csrc/activation.cu's kernels to the plain code on every frame of each.
+# The grid of tests/test_torch_kernels.py: 128^3 over 1.6 m, 160x120.
+ACT_CFG = TSDFConfig(xres=128, yres=128, zres=128, xsize=1.6, ysize=1.6, zsize=1.6,
+                     max_dist_pos=0.04, max_dist_neg=0.04, min_sensor_dist=0.1,
+                     image_width=160, image_height=120, focal_length_x=140.0,
+                     focal_length_y=140.0, principal_point_x=80.0, principal_point_y=60.0)
+
+_ORBIT = [orbit_pose(a) for a in (0.0, 0.5, 1.0)]
+
+# name -> (brick size, the frames' poses, depth edit, update budget, tile
+# budget, capacity): the orbit at bricks of 4, 8, 16 and 32 (budgets and
+# capacities of tests/test_torch_kernels.py::_sizes); a tilted camera; 5 %
+# NaN dropouts; a camera inside the volume 0.12 m from the sphere (spheres
+# straddle the camera plane: the cone and whole-image test); budgets small
+# enough that the tile budget, U2 (twice the update budget) and the update
+# budget each overflow alone (the last at bricks of 32, where more than
+# half the rough bricks are tight); a frame whose depth lies past the
+# volume after one of the sphere, so that more live bricks than the carve
+# budget lie in front.
+ACTIVATION_CASES = {
+    "orbit_b4": (4, _ORBIT, None, 16384, 1024, 32769),
+    "orbit_b8": (8, _ORBIT, None, 2048, 1024, 4096),
+    "orbit_b16": (16, _ORBIT, None, 256, 1024, 513),
+    "orbit_b32": (32, _ORBIT, None, 64, 1024, 65),
+    "tilted": (8, [tilted_pose()], None, 2048, 1024, 4096),
+    "dropouts": (8, _ORBIT, "dropouts", 2048, 1024, 4096),
+    "inside": (8, [orbit_pose(0.3, orbit_radius=0.62)], None, 2048, 1024, 4096),
+    "tile_budget": (8, _ORBIT[:1], None, 2048, 12, 4096),
+    "rough_budget": (8, _ORBIT[:1], None, 64, 1024, 4096),
+    "update_budget": (32, _ORBIT[1:2], None, 32, 1024, 65),
+    "carve_budget": (4, [_ORBIT[0], _ORBIT[0]], "far", 4096, 1024, 32769),
+}
+
+
+def activation_case(case):
+    """(cfg, B, [(pose, depth)] float32, update budget, tile budget,
+    capacity) of an activation case: the sphere of radius 0.5 m at the
+    origin seen from each pose."""
+    B, poses, edit, budget, tile_budget, capacity = ACTIVATION_CASES[case]
+    rng = np.random.default_rng(7)
+    frames = []
+    for i, pose in enumerate(poses):
+        depth = sphere_depth_world(ACT_CFG, pose, radius=0.5)
+        if edit == "dropouts":
+            depth = np.where(rng.uniform(size=depth.shape) < 0.05, np.nan, depth)
+        elif edit == "far" and i > 0:
+            depth = np.full_like(depth, 2.5)
+        frames.append((np.asarray(pose, np.float32), depth.astype(np.float32)))
+    return ACT_CFG, B, frames, budget, tile_budget, capacity
