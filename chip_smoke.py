@@ -1041,10 +1041,10 @@ def activation_check(torch, vol, depth, pose_inv, budget, launches, timer):
     launch_floor_ms."""
     from cpu_tsdf_tpu_torch import _build
     from cpu_tsdf_tpu_torch import activation as ta
-    from cpu_tsdf_tpu_torch.bricks import carve_budget_for
+    from cpu_tsdf_tpu_torch.bricks import frame_budgets
 
     cfg, B = vol.config, vol.brick_size
-    nb, carve_budget = vol.bricks_per_axis, carve_budget_for(budget)
+    nb, carve_budget = vol.bricks_per_axis, frame_budgets(vol, budget)[1]
 
     def stage(kernel):
         mips = ta.depth_mips(depth, ta.mip_base_level(cfg, B), kernel=kernel)
@@ -1053,7 +1053,7 @@ def activation_check(torch, vol, depth, pose_inv, budget, launches, timer):
                                      kernel=kernel)
 
     outs = [stage(k) for k in (True, False)]
-    for name, a, b in zip(("cand", "n_band", "overflow", "carve", "n_carve"), *outs):
+    for name, a, b in zip(("cand", "counts", "overflow", "carve", "n_carve"), *outs):
         if not torch.equal(a, b):
             raise AssertionError(f"activation kernels ({B}^3 bricks): {name} differs from "
                                  "the plain code")
@@ -1069,7 +1069,7 @@ def activation_check(torch, vol, depth, pose_inv, budget, launches, timer):
             stage(kernel)
         times.append(timer.ms(graph.replay, spin=True))
         del graph
-    n_band, n_carve = int(outs[0][1]), int(outs[0][4])
+    n_band, n_carve = int(outs[0][1][0]), int(outs[0][4])
     L = ta.depth_mips(depth, ta.mip_base_level(cfg, B)).flat_min.numel()
     H, W = depth.shape
     nbytes = (H * W * 4 + vol.coords.numel() * 4 + 4 * L * 4 * 2

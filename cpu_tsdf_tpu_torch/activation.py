@@ -349,10 +349,13 @@ def band_candidate_bricks(cfg: TSDFConfig, B: int, nb: Tuple[int, int, int],
                           tile_budget: int = 1024, x_slab=None, *, kernel: bool = False):
     """Budgeted list of bricks intersecting this frame's truncation band.
 
-    Returns (cand [update_budget] int32 brick linear ids (-1 pad), n_band,
+    Returns (cand [update_budget] int32 brick linear ids (-1 pad), counts,
     overflow) as tensors, in TILE-MAJOR order (ascending tile id, then
-    local brick id within the tile). `pose_inv` maps volume frame ->
-    camera frame.
+    local brick id within the tile). counts int32 [3]: the band bricks
+    (the JAX package's n_band), the band-active tiles and the rough
+    bricks, each in full (not clamped to its budget: the update budget,
+    the tile budget and U2 of :func:`_tile_grid`). `pose_inv` maps volume
+    frame -> camera frame.
 
     x_slab = (bx_lo, nbw) restricts the list to bricks with bx in
     [bx_lo, bx_lo + nbw), the slab of one rank of the sharded integrate
@@ -450,5 +453,5 @@ def band_candidate_bricks(cfg: TSDFConfig, B: int, nb: Tuple[int, int, int],
     tight = rok & _band_test(cfg, mips, *rsph)
     cand, n_band = _compact(tight, rsafe, update_budget)
     overflow = overflow | (n_band > update_budget)
-    return cand, n_band, overflow
+    return cand, torch.stack([n_band, n_tiles, n_rough]), overflow
 

@@ -212,11 +212,49 @@ def _gather_packed(vol: PackedRenderVolume, ix, iy, iz):
 # allocation
 # ---------------------------------------------------------------------------
 
-def carve_budget_for(update_budget: int) -> int:
-    """Size of the carve batch appended to each frame's update list: an
-    eighth of the band budget (128-aligned), at least 256; denser carve sets
-    raise `overflowed`, never drop silently."""
-    return max(256, (update_budget // 8 + 127) // 128 * 128)
+def tile_budget_for(update_budget: int, nb) -> int:
+    """Tiles a frame's band pass may list (``band_candidate_bricks``'
+    ``tile_budget`` on the frame path) for an update budget on a grid of
+    ``nb`` bricks: room for a full band list whose tiles hold half a
+    plane's bricks each (a plane across a tile of TB^3 bricks crosses TB^2
+    of them), 2 * update_budget / TB^2, and never fewer than 1024, the
+    JAX package's fixed budget. ``activation._tile_grid`` caps it at the
+    grid's tiles, and sets the rough list's length U2 = min(2 *
+    update_budget, tile budget * TB^3) from it.
+
+    At KinectFusion's orbit (2^13, 64^3 bricks, TB = 4) it is the former
+    1024; at the InfiniTAM room (2^16, 75^3 bricks) 8192, so every one of
+    the 6859 tiles, where a frame lists at most 1,752 (PERF.md)."""
+    from .activation import pick_tile_bricks
+
+    TB = pick_tile_bricks(nb)
+    return max(1024, 2 * update_budget // (TB * TB))
+
+
+def carve_budget_for(update_budget: int, *, capacity: int, nb) -> int:
+    """Size of the carve list appended to each frame's update list: the
+    live bricks strictly in front of the frame's depth. A frame's free
+    space in front of its surfaces holds about as many bricks as its band
+    budget, and at most the pool's share of the brick map (capacity over
+    the grid's bricks ``nb``) of them can be live: update_budget *
+    capacity / bricks, never below an eighth of the band budget (the
+    former budget), 128-aligned, at least 256 and at most the capacity.
+    Denser carve sets raise ``overflowed``, never drop silently.
+
+    At KinectFusion's orbit (2^13, 2^15 rows, 64^3 bricks) it is the
+    former 1024; at the InfiniTAM room (2^16, 2^18 rows, 75^3 bricks)
+    40,832, where a frame carves at most 16,805 (PERF.md)."""
+    bricks = nb[0] * nb[1] * nb[2]
+    want = max(update_budget // 8, -(-update_budget * capacity // bricks))
+    return min(capacity, max(256, (want + 127) // 128 * 128))
+
+
+def frame_budgets(vol: "BrickVolume", update_budget: int):
+    """(tile budget, carve budget) of a frame on ``vol`` at this update
+    budget: :func:`tile_budget_for`, :func:`carve_budget_for`."""
+    nb = vol.bricks_per_axis
+    return (tile_budget_for(update_budget, nb),
+            carve_budget_for(update_budget, capacity=vol.capacity, nb=nb))
 
 
 def _allocate(vol: BrickVolume, want_mask) -> None:
@@ -251,7 +289,8 @@ def _allocate_from_list(vol: BrickVolume, cand) -> None:
     allocate nothing scatter onto one pad entry past the end of the brick
     map and of the coords (its ``mode="drop"``), which is sliced off; the
     state tensors are written in place, so a captured frame keeps their
-    addresses."""
+    addresses. Returns (the new bricks, the free rows) as 0-dim int32
+    tensors: more new bricks than free rows set ``overflowed``."""
     C = vol.capacity
     dev = cand.device
     bm = vol.brick_map.view(-1)
@@ -281,6 +320,7 @@ def _allocate_from_list(vol: BrickVolume, cand) -> None:
     vol.coords.copy_(coords_pad[:C])
     vol.overflowed |= n_new > n_free
     vol.n_active.copy_(live.sum(dtype=torch.int32) + torch.minimum(n_new, n_free))
+    return n_new, n_free
 
 
 # ---------------------------------------------------------------------------
@@ -343,13 +383,25 @@ def _jitter_split_bricks(cfg: TSDFConfig, nb, depth, pose, bids, update_budget: 
     return bids, n_band, n_band > update_budget
 
 
+# The tracing counter group of a frame's list lengths (frame_update_list).
+LIST_COUNTS = "activation.lists"
+
+
 def frame_update_list(vol: BrickVolume, depth, pose_inv, update_budget: int,
                       pose=None, split_generator: Optional[torch.Generator] = None, *,
-                      kernel: bool = False):
+                      kernel: bool = False, limits: Optional[dict] = None):
     """Activation and allocation for one frame: allocates the frame's new
     band bricks in place and returns the update list (bx, by, bz, slot_ok,
     slots) — band candidates then carve slots — plus the frame's overflow
-    flag (0-dim bool tensor).
+    flag (0-dim bool tensor). The tile and carve budgets follow from the
+    update budget and the volume (:func:`frame_budgets`). With tracing on,
+    the lists' lengths in full, each beside its budget, are recorded on
+    the device as the counter group :data:`LIST_COUNTS` (the band-active
+    tiles, the rough bricks, the band bricks, the carve slots; no host
+    sync); off, nothing is recorded. ``limits``, a dict, receives the same
+    lengths and the allocation's new bricks beside its free rows, under
+    "capacity": each (a 0-dim int32 tensor, its limit), read by
+    :func:`exceeded_limits`.
 
     With ``num_random_splits > 1`` the band list gains the jittered
     pre-split bricks, which need ``pose`` (camera-to-volume) and draw their
@@ -358,13 +410,16 @@ def frame_update_list(vol: BrickVolume, depth, pose_inv, update_budget: int,
     each frame). kernel: activation (the mips, the band and carve lists)
     through csrc/activation.cu's kernels, which give the plain code's lists
     (CUDA tensors only); the jitter stays torch code."""
-    from .activation import band_candidate_bricks, carve_slots, depth_mips, mip_base_level
+    from .activation import _tile_grid, band_candidate_bricks, carve_slots, depth_mips
+    from .activation import mip_base_level
 
     cfg, B, C = vol.config, vol.brick_size, vol.capacity
     nb = vol.bricks_per_axis
+    tile_budget, carve_budget = frame_budgets(vol, update_budget)
     mips = depth_mips(depth, mip_base_level(cfg, B), kernel=kernel)
-    bids, _, overflow = band_candidate_bricks(cfg, B, nb, mips, pose_inv,
-                                              update_budget, kernel=kernel)
+    bids, counts, overflow = band_candidate_bricks(cfg, B, nb, mips, pose_inv, update_budget,
+                                                   tile_budget, kernel=kernel)
+    n_band = counts[0]
     if cfg.num_random_splits > 1:
         if pose is None:
             raise ValueError("num_random_splits > 1 needs the camera pose")
@@ -372,18 +427,24 @@ def frame_update_list(vol: BrickVolume, depth, pose_inv, update_budget: int,
             split_generator = torch.Generator(device=vol.device).manual_seed(0)
         noise = draw_split_noise(depth.shape[0], depth.shape[1],
                                  cfg.num_random_splits - 1, split_generator)
-        bids, _, jitter_overflow = _jitter_split_bricks(cfg, nb, depth, pose, bids,
-                                                        update_budget, noise)
+        bids, n_band, jitter_overflow = _jitter_split_bricks(cfg, nb, depth, pose, bids,
+                                                             update_budget, noise)
         overflow = overflow | jitter_overflow
     # carve pass on the PRE-allocation live set: live bricks strictly in
     # front of every depth under their footprint (hpp:189-198)
-    carve_budget = carve_budget_for(update_budget)
     carve, n_carve = carve_slots(cfg, B, mips, pose_inv, vol.coords, carve_budget,
                                  kernel=kernel)
     overflow = overflow | (n_carve > carve_budget)
+    _, _, _, _, tiles_held, U2 = _tile_grid(nb, update_budget, tile_budget)
+    lists = {"tiles": (counts[1], tiles_held), "rough": (counts[2], U2),
+             "band": (n_band, update_budget), "carve": (n_carve, carve_budget)}
+    if tracing.enabled():
+        tracing.count(LIST_COUNTS, vol.device, lists)
 
     tracing.stage("frame.allocation", vol.device)
-    _allocate_from_list(vol, bids)
+    n_new, n_free = _allocate_from_list(vol, bids)
+    if limits is not None:
+        limits.update(lists, capacity=(n_new, n_free))
     bsafe = torch.clamp(bids, min=0)
     slots = vol.brick_map.view(-1)[bsafe.long()]
     slot_ok = (bids >= 0) & (slots >= 0)
@@ -397,11 +458,21 @@ def frame_update_list(vol: BrickVolume, depth, pose_inv, update_budget: int,
             torch.cat([slots, cs_safe]), overflow)
 
 
+def exceeded_limits(limits: dict) -> list:
+    """The names of the limits a frame exceeded, of the ``limits`` that
+    :func:`frame_update_list` (or :func:`integrate_bricks`) filled in:
+    "tiles", "rough", "band", "carve" (a list longer than its budget) and
+    "capacity" (more new bricks than free rows). A host sync: for
+    reports, such as the integrate CLI's warning."""
+    return [name for name, (n, limit) in limits.items() if int(n) > int(limit)]
+
+
 def integrate_bricks(vol: BrickVolume, depth, pose, rgb=None,
                      update_budget: int = 1 << 13,
                      use_kernel: Optional[bool] = None,
                      split_generator: Optional[torch.Generator] = None, *,
-                     graph: Optional[bool] = None) -> BrickVolume:
+                     graph: Optional[bool] = None,
+                     limits: Optional[dict] = None) -> BrickVolume:
     """Fuse one depth frame into the brick volume, IN PLACE; returns `vol`.
 
     depth [H, W] (NaN = missing), pose [4, 4] camera-to-volume, rgb
@@ -416,27 +487,35 @@ def integrate_bricks(vol: BrickVolume, depth, pose, rgb=None,
     graph (:mod:`.graph`; captured at the first frame of this volume and
     these settings, which runs as its warm-up, then replayed), eagerly on
     the CPU; False = eagerly anywhere; True on the CPU raises. Both routes
-    run the same program and give the same bits. The tracing call
-    ``integrate_bricks``."""
+    run the same program and give the same bits. limits: a dict that
+    receives the frame's list lengths and pool rows, each beside its limit
+    (:func:`frame_update_list`; on the graph route the graph's outputs,
+    which the next frame overwrites): :func:`exceeded_limits` names those
+    exceeded. The tracing call ``integrate_bricks``."""
     from .graph import integrate_graphed, resolve_graph
 
     dev = vol.device
     with tracing.call("integrate_bricks", dev):
         kernel = resolve_use_kernel(use_kernel, dev)
         if resolve_graph(graph, dev):
-            integrate_graphed(vol, depth, pose, rgb, update_budget, kernel, split_generator)
-            return vol
-        depth = torch.as_tensor(depth, dtype=torch.float32, device=dev)
-        pose = torch.as_tensor(pose, dtype=torch.float32, device=dev)
-        fuse_frame(vol, depth, pose, rgb, update_budget, kernel, split_generator)
+            out = integrate_graphed(vol, depth, pose, rgb, update_budget, kernel,
+                                    split_generator)
+        else:
+            depth = torch.as_tensor(depth, dtype=torch.float32, device=dev)
+            pose = torch.as_tensor(pose, dtype=torch.float32, device=dev)
+            out = fuse_frame(vol, depth, pose, rgb, update_budget, kernel, split_generator)
+        if limits is not None:
+            limits.update(out)
         return vol
 
 
 def fuse_frame(vol: BrickVolume, depth, pose, rgb, update_budget: int, kernel: bool,
-               split_generator: Optional[torch.Generator]) -> None:
+               split_generator: Optional[torch.Generator]) -> dict:
     """One frame on device tensors, in place: activation, allocation and
-    the batched update, the device stages ``frame.activation``,
-    ``frame.allocation`` and ``frame.batch``. Fixed shapes and no host sync
+    the batched update; returns the frame's limits (``frame_update_list``'s
+    ``limits``: tensors the frame computes in any case). The device stages
+    ``frame.activation``, ``frame.allocation`` and ``frame.batch``. Fixed
+    shapes and no host sync
     (the graph of :mod:`.graph` captures it; tests/test_torch_graph.py
     records its ops), every state update in place. kernel: activation and
     the batched update through the CUDA kernels (csrc/activation.cu,
@@ -444,14 +523,17 @@ def fuse_frame(vol: BrickVolume, depth, pose, rgb, update_budget: int, kernel: b
     dev = vol.device
     tracing.stage("frame.activation", dev)
     pose_inv = rigid_inverse(pose)
+    limits = {}
     bx, by, bz, slot_ok, slots, overflow = frame_update_list(
-        vol, depth, pose_inv, update_budget, pose, split_generator, kernel=kernel)
+        vol, depth, pose_inv, update_budget, pose, split_generator, kernel=kernel,
+        limits=limits)
     tracing.stage("frame.batch", dev)
     fuse_brick_batch(vol.config, vol.brick_size, bx, by, bz, slot_ok, slots,
                      vol.sdf, vol.weight, vol.M, vol.nsample, vol.color,
                      depth, pose_inv, rgb, kernel)
     vol.overflowed |= overflow
     tracing.stage(None, dev)
+    return limits
 
 
 def integrate_bricks_sequence(vol: BrickVolume, depths, poses, rgbs=None,

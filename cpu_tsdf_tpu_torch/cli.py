@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from . import tracing
-from .bricks import BrickVolume, integrate_bricks, make_brick_volume, to_dense
+from .bricks import (BrickVolume, exceeded_limits, integrate_bricks, make_brick_volume,
+                     to_dense)
 from .config import TSDFConfig, snap_resolution_pow2
 from .io import pcd as pcd_io
 from .io import ply as ply_io
@@ -39,6 +40,22 @@ from .ops.raycast import render_view
 from .pipeline import (cleanup_mesh, estimate_intrinsics, flatten_vertices, organize_cloud,
                        voxel_downsample)
 from .volume import make_volume
+
+
+# the flag that raises each limit a brick frame can exceed
+_RAISE = {"capacity": "--brick-capacity", "tiles": "--update-budget",
+          "rough": "--update-budget", "band": "--update-budget",
+          "carve": "--update-budget or --brick-capacity"}
+
+
+def _warn_overflow(i: int, limits: list) -> None:
+    """The warning for brick frame i, naming the limits it exceeded
+    (``bricks.exceeded_limits``; none: an earlier frame overflowed)."""
+    if limits:
+        fix = " / ".join(dict.fromkeys(_RAISE[n] for n in limits))
+        print(f"Warning: frame {i + 1} overflowed its brick "
+              f"{', '.join(limits)} limit{'s' if len(limits) > 1 else ''} — increase {fix}",
+              file=sys.stderr)
 
 
 def _integrate_parser() -> argparse.ArgumentParser:
@@ -100,6 +117,9 @@ def _integrate_parser() -> argparse.ArgumentParser:
                         "fast path; scales past dense-grid memory)")
     p.add_argument("--brick-size", type=int, default=8)
     p.add_argument("--brick-capacity", type=int, default=1 << 15)
+    p.add_argument("--update-budget", type=int, default=1 << 13,
+                   help="band bricks a --sparse frame may update; the frame's "
+                        "tile and carve budgets follow from it and the capacity")
     p.add_argument("--metrics-json", default=None,
                    help="write per-frame timing/occupancy metrics to this file")
     p.add_argument("--save-every", type=int, default=0, metavar="N",
@@ -297,10 +317,11 @@ def _integrate_impl(argv=None) -> int:
                     pose_t = torch.as_tensor(pose_rel, dtype=torch.float32, device=dev)
                     rgb_in = None if (rgb_img is None or not args.color) else rgb_img
                     if args.sparse:
-                        vol = integrate_bricks(vol, depth, pose_t, rgb_in, 1 << 13)
+                        limits = {}
+                        vol = integrate_bricks(vol, depth, pose_t, rgb_in, args.update_budget,
+                                               limits=limits)
                         if bool(vol.overflowed):
-                            print("Warning: brick capacity/budget overflow — increase "
-                                  "--brick-capacity", file=sys.stderr)
+                            _warn_overflow(i, exceeded_limits(limits))
                     else:
                         vol = integrate(vol, depth, pose_t, rgb_in)
                     end_stage()

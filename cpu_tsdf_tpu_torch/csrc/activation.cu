@@ -501,6 +501,7 @@ __global__ void __launch_bounds__(kListThreads) band_list_kernel(ActParams p,
                                                                  const unsigned* tight_words,
                                                                  int* cand, int* n_band_out,
                                                                  bool* overflow) {
+  // n_band_out: the band, tile and rough counts, in full (not clamped)
   const int n_tiles = count_tiles(p, tile_words, nullptr);
   const int n_listed = min(n_tiles, p.tile_budget);
   const int shift3 = 3 * p.tb_shift;
@@ -539,7 +540,9 @@ __global__ void __launch_bounds__(kListThreads) band_list_kernel(ActParams p,
   for (int i = min(n_band, p.update_budget) + threadIdx.x; i < p.update_budget; i += blockDim.x)
     cand[i] = -1;
   if (threadIdx.x == 0) {
-    *n_band_out = n_band;
+    n_band_out[0] = n_band;
+    n_band_out[1] = n_tiles;
+    n_band_out[2] = n_rough;
     *overflow = n_tiles > p.tile_budget || n_rough > p.rough_budget || n_band > p.update_budget;
   }
 }
@@ -630,7 +633,8 @@ extern "C" int tsdf_depth_mips(const MipLayout* layout, const void* depth, void*
 }
 
 // scratch: int32 [tile words + tile_budget + 2 * item words]; cand: int32
-// [update_budget + 1] (the list, then n_band); overflow: one bool. Returns
+// [update_budget + 3] (the list, then the band, tile and rough counts);
+// overflow: one bool. Returns
 // -1, launching nothing, for more tiles than kMaxTileWords words hold.
 extern "C" int tsdf_band_candidates(const MipLayout* layout, const ActParams* params,
                                     const void* mn, const void* mx, const void* mn_d,

@@ -1,4 +1,5 @@
-// Device-clock stamp for the port's tracing (cpu_tsdf_tpu_torch/tracing.py).
+// Device-clock stamp and device counts for the port's tracing
+// (cpu_tsdf_tpu_torch/tracing.py).
 //
 // Replaces no TPU kernel: the JAX package has no device stages. Added so
 // that a stage boundary inside a CUDA graph is timed at every replay with
@@ -33,5 +34,41 @@ extern "C" int tsdf_trace_stamp(void* ring, void* head, long long n, long long l
                                 void* stream) {
   stamp_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((long long*)ring, (unsigned long long*)head,
                                                   n, label);
+  return (int)cudaGetLastError();
+}
+
+// Device counts: one row of a ring of int32 rows, written with no host sync
+// (tracing.count). A row is the group's label, the number k of counts, the
+// k counts read from device memory (each an int32 that an earlier
+// operation of the stream wrote, such as a list's length) and their k
+// budgets, which the launch carries: kCountRow ints in all. One
+// block of one thread, as the stamp, so inside a CUDA graph every replay
+// records its own counts.
+constexpr int kMaxCounts = 7;
+constexpr int kCountRow = 2 + 2 * kMaxCounts;
+
+// Mirrors cpu_tsdf_tpu_torch/tracing.py::_CountSpec.
+struct CountSpec {
+  const int* src[kMaxCounts];
+  int budget[kMaxCounts];
+  int k;
+  int label;
+};
+
+__global__ void count_kernel(int* rows, unsigned long long* head, long long n, CountSpec spec) {
+  const unsigned long long i = atomicAdd(head, 1ULL) % (unsigned long long)n;
+  int* row = rows + kCountRow * i;
+  row[0] = spec.label;
+  row[1] = spec.k;
+  for (int j = 0; j < kMaxCounts; ++j) {
+    row[2 + j] = j < spec.k ? *spec.src[j] : 0;
+    row[2 + kMaxCounts + j] = j < spec.k ? spec.budget[j] : 0;
+  }
+}
+
+extern "C" int tsdf_trace_counts(void* rows, void* head, long long n, const void* spec,
+                                 void* stream) {
+  count_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((int*)rows, (unsigned long long*)head, n,
+                                                  *(const CountSpec*)spec);
   return (int)cudaGetLastError();
 }

@@ -262,21 +262,23 @@ class _FrameGraph:
         if self.rgb is not None:
             self.rgb.copy_(rgb)
 
-    def run(self, depth, pose, rgb, reseed: bool) -> None:
+    def run(self, depth, pose, rgb, reseed: bool) -> dict:
         with tracing.span("graph.inputs"):
             self._inputs(depth, pose, rgb)
             if self.own_generator is not None and reseed:
                 self.own_generator.manual_seed(0)
         with tracing.span("graph.replay"):
             self.captured.replay()
+        return self.captured.out
 
 
 def integrate_graphed(vol, depth, pose, rgb, update_budget: int, kernel: bool,
-                      split_generator: Optional[torch.Generator], reseed: bool = True) -> None:
+                      split_generator: Optional[torch.Generator], reseed: bool = True) -> dict:
     """One frame of ``bricks.integrate_bricks`` through its graph, in place
     (the first frame of a key captures the graph and runs as its warm-up).
-    reseed: seed the graph's own split generator 0 before this frame. The
-    host span ``frame``."""
+    reseed: seed the graph's own split generator 0 before this frame.
+    Returns the frame's limits (``bricks.fuse_frame``), the graph's outputs,
+    which its next replay overwrites. The host span ``frame``."""
     with tracing.span("frame"):
         dev = vol.device
         depth = torch.as_tensor(depth, dtype=torch.float32, device=dev)
@@ -292,10 +294,11 @@ def integrate_graphed(vol, depth, pose, rgb, update_budget: int, kernel: bool,
                    split_generator if jitter else None)
             entry = _lookup(key)
         if entry is None:
-            _keep(key, _FrameGraph(vol, depth, pose, rgb, update_budget, kernel,
-                                   split_generator))
-        else:
-            entry.run(depth, pose, rgb, reseed)
+            entry = _FrameGraph(vol, depth, pose, rgb, update_budget, kernel, split_generator)
+            _keep(key, entry)
+            out, entry.captured.warm = entry.captured.warm, None
+            return out
+        return entry.run(depth, pose, rgb, reseed)
 
 
 class _ProgramGraph:

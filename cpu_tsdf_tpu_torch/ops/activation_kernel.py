@@ -153,8 +153,8 @@ def depth_mips(depth, base_level: int = 0) -> DepthMips:
 def band_candidate_bricks(cfg: TSDFConfig, B: int, nb, mips: DepthMips, pose_inv,
                           update_budget: int, tile_budget: int = 1024, x_slab=None):
     """``activation.band_candidate_bricks`` in three launches (the tile
-    bits, the brick bits, the list): (cand [update_budget] int32, n_band,
-    overflow)."""
+    bits, the brick bits, the list): (cand [update_budget] int32, counts
+    [3] int32, overflow)."""
     from .._build import check, check_tensor, function, stream_ptr
 
     what = "band_candidate_bricks"
@@ -169,7 +169,7 @@ def band_candidate_bricks(cfg: TSDFConfig, B: int, nb, mips: DepthMips, pose_inv
     n_item_words = n_items // 32
     scratch = torch.empty((n_tile_words + p.tile_budget + 2 * n_item_words,),
                           dtype=torch.int32, device=dev)
-    out = torch.empty((update_budget + 1,), dtype=torch.int32, device=dev)
+    out = torch.empty((update_budget + 3,), dtype=torch.int32, device=dev)
     overflow = torch.empty((), dtype=torch.bool, device=dev)
     fn = function("activation", "tsdf_band_candidates",
                   [ctypes.POINTER(MipLayout), ctypes.POINTER(ActParams)] + [ctypes.c_void_p] * 9)
@@ -183,7 +183,7 @@ def band_candidate_bricks(cfg: TSDFConfig, B: int, nb, mips: DepthMips, pose_inv
     launches["tiles"] += p.n_tiles > 0
     launches["bricks"] += n_items > 0
     launches["band_list"] += 1
-    return out[:update_budget], out[update_budget], overflow
+    return out[:update_budget], out[update_budget:], overflow
 
 
 def carve_slots(cfg: TSDFConfig, B: int, mips: DepthMips, pose_inv, coords,

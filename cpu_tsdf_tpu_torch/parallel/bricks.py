@@ -111,10 +111,13 @@ def integrate_bricks_sharded(bv: ShardedBrickVolume, depth, pose, mesh=None,
     hold the frustum's whole near field) and 1.5x below (the JAX package's
     sizing). A slab denser than its budget, or a rank out of rows, sets
     ``overflowed`` on every rank (MAX over the slabs); nothing is dropped
-    silently. use_kernel: None = the CUDA kernels (activation and fusion) on
-    the card and their plain versions on the CPU. `mesh` defaults to bv's."""
+    silently. The tile and carve budgets follow from budget_per_device, the
+    rank's rows and its slab of the brick map (``bricks.tile_budget_for``,
+    ``carve_budget_for``). use_kernel: None = the CUDA kernels (activation
+    and fusion) on the card and their plain versions on the CPU. `mesh`
+    defaults to bv's."""
     from ..activation import band_candidate_bricks, carve_slots, depth_mips, mip_base_level
-    from ..bricks import _brick_coords, carve_budget_for, fuse_brick_batch
+    from ..bricks import _brick_coords, carve_budget_for, fuse_brick_batch, tile_budget_for
 
     mesh = bv.mesh if mesh is None else mesh
     r, D, group = shard_info(mesh)
@@ -134,12 +137,12 @@ def integrate_bricks_sharded(bv: ShardedBrickVolume, depth, pose, mesh=None,
 
     # ---- slab-restricted band activation ----
     mips = depth_mips(depth, mip_base_level(cfg, B), kernel=kernel)
-    cand, _, overflow = band_candidate_bricks(cfg, B, nb, mips, pose_inv,
-                                              budget_per_device, x_slab=(bx0, nbx_local),
-                                              kernel=kernel)
+    cand, _, overflow = band_candidate_bricks(cfg, B, nb, mips, pose_inv, budget_per_device,
+                                              tile_budget_for(budget_per_device, nb),
+                                              x_slab=(bx0, nbx_local), kernel=kernel)
     # the carve pass runs on the PRE-allocation live set (band-new bricks
-    # cannot be in front of the band)
-    carve_budget = carve_budget_for(budget_per_device)
+    # cannot be in front of the band); the slab's share of the pool
+    carve_budget = carve_budget_for(budget_per_device, capacity=C, nb=(nbx_local, nby, nbz))
     carve, n_carve = carve_slots(cfg, B, mips, pose_inv, bv.coords, carve_budget,
                                  kernel=kernel)
     overflow = overflow | (n_carve > carve_budget)

@@ -28,6 +28,12 @@ them from inside the program:
 * **Counters** (:func:`counters`): dicts of integers registered by name,
   which their owners increment whether tracing is on or not (the kernel
   wrappers' launch counts, the graphs' captures and replays).
+* **Device counts** (:func:`count`): integers the device computed (a
+  list's length), each beside its budget, copied by a one-thread kernel
+  (``csrc/trace.cu``) into a ring of rows on the card with no host sync,
+  so that a captured graph records them at every replay; :func:`report`
+  gives each count's mean and maximum over the rows. On CPU tensors the
+  values are kept as tensors and read at the report.
 
 Off, an entry point pays one test of a module-level boolean: :func:`span`,
 :func:`call` and :func:`stage` return at once, and nothing is created or
@@ -36,8 +42,9 @@ captured with stamps is never replayed with tracing off, nor the reverse.
 
 :func:`enable` allocates the buffers: the host spans' (bounded, its oldest
 records dropped and counted when full) and, once a process, a ring of
-:data:`RING_STAMPS` stamps on each card (graphs captured with stamps keep
-its address, so it is never freed), then takes one calibration point a
+:data:`RING_STAMPS` stamps and one of :data:`COUNT_ROWS` count rows on each
+card (graphs captured with stamps keep their addresses, so they are never
+freed), then takes one calibration point a
 card (a sync, then the host and device clocks read together), so that
 stages and host spans lie on one timeline. :func:`report` reads the
 records (one host sync), returns their summary and starts the next window;
@@ -61,6 +68,11 @@ import torch
 RING_STAMPS = 1 << 20
 # Host spans the buffer holds by default.
 SPAN_CAPACITY = 1 << 18
+# Rows of device counts a card's ring holds (COUNT_ROW int32 each: the
+# label, the number of counts, MAX_COUNTS counts, MAX_COUNTS budgets).
+COUNT_ROWS = 1 << 16
+MAX_COUNTS = 7
+COUNT_ROW = 2 + 2 * MAX_COUNTS
 CALL_BEGIN, CALL_END = "call.begin", "call.end"
 
 _on = False
@@ -75,6 +87,18 @@ _rings: dict = {}
 # per card index: the ring's and the head's addresses, as the stamp takes them
 _ptrs: dict = {}
 _stamp_fn = None
+# per card index: (count rows [COUNT_ROWS, COUNT_ROW] int32, head [1] int64)
+_count_rings: dict = {}
+_count_fn = None
+# label -> (group, count names) of the device counts
+_count_groups: dict = {}
+
+
+class _CountSpec(ctypes.Structure):
+    """Mirror of ``struct CountSpec`` in csrc/trace.cu."""
+
+    _fields_ = [("src", ctypes.c_void_p * MAX_COUNTS), ("budget", ctypes.c_int * MAX_COUNTS),
+                ("k", ctypes.c_int), ("label", ctypes.c_int)]
 
 
 def enabled() -> bool:
@@ -105,6 +129,8 @@ class _Tracer:
         self.call_depth = 0
         self.cpu_stamps = collections.deque(maxlen=RING_STAMPS)
         self.n_cpu_stamps = 0
+        self.cpu_counts = collections.deque(maxlen=COUNT_ROWS)
+        self.n_cpu_counts = 0
         self.offsets: dict = {}        # card index -> device ns minus host ns
         self.counts0 = _counts()
 
@@ -113,7 +139,9 @@ class _Tracer:
         self.n_spans = 0
         self.cpu_stamps.clear()
         self.n_cpu_stamps = 0
-        for head in (h for _, h in _rings.values()):
+        self.cpu_counts.clear()
+        self.n_cpu_counts = 0
+        for _, head in list(_rings.values()) + list(_count_rings.values()):
             head.zero_()
         self.counts0 = _counts()
 
@@ -126,10 +154,10 @@ def _cuda_devices() -> list:
 
 def enable(capacity: int = SPAN_CAPACITY, devices=None) -> None:
     """Turn tracing on with fresh buffers: host spans up to ``capacity``,
-    a stamp ring on each of ``devices`` (default: every visible card) and
-    one calibration point each (a host sync: call it outside a timed
+    a stamp ring and a count ring on each of ``devices`` (default: every
+    visible card) and one calibration point each (a host sync: call it outside a timed
     region and outside any graph capture)."""
-    global _on, _tracer, _stamp_fn
+    global _on, _tracer, _stamp_fn, _count_fn
     _tracer = _Tracer(capacity)
     for dev in _cuda_devices() if devices is None else [torch.device(d) for d in devices]:
         if dev.type != "cuda":
@@ -142,10 +170,16 @@ def enable(capacity: int = SPAN_CAPACITY, devices=None) -> None:
                 _stamp_fn = function("trace", "tsdf_trace_stamp",
                                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                                       ctypes.c_longlong, ctypes.c_void_p])
+                _count_fn = function("trace", "tsdf_trace_counts",
+                                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                                      ctypes.c_void_p, ctypes.c_void_p])
             ring, head = _rings[idx] = (
                 torch.zeros((RING_STAMPS, 2), dtype=torch.int64, device=dev),
                 torch.zeros((1,), dtype=torch.int64, device=dev))
             _ptrs[idx] = (ring.data_ptr(), head.data_ptr())
+            _count_rings[idx] = (
+                torch.zeros((COUNT_ROWS, COUNT_ROW), dtype=torch.int32, device=dev),
+                torch.zeros((1,), dtype=torch.int64, device=dev))
         _tracer.offsets[idx] = _calibrate(dev)
     _tracer.window()
     _on = True
@@ -228,6 +262,44 @@ def stage(name: Optional[str], device: torch.device) -> None:
     stage before it ends and none begins) on `device`'s current stream."""
     if _on:
         _stamp(device, name)
+
+
+def count(group: str, device: torch.device, counts: dict) -> None:
+    """Record device counts of the counter group `group` on `device`'s
+    current stream: ``counts`` maps each name to (a 0-dim int32 tensor on
+    `device`, its budget), at most MAX_COUNTS of them. No host sync; a
+    capture records the copy as a node of its graph. :func:`report` gives
+    ``group.name``'s mean and maximum over the rows recorded in the
+    window, beside its budget."""
+    if not _on:
+        return
+    names = tuple(counts)
+    if not 0 < len(names) <= MAX_COUNTS:
+        raise ValueError(f"tracing.count: 1 to {MAX_COUNTS} counts, got {len(names)}")
+    label = _label(f"{group}({','.join(names)})")
+    _count_groups[label] = (group, names)
+    values = [v for v, _ in counts.values()]
+    budgets = [int(b) for _, b in counts.values()]
+    for name, v in zip(names, values):
+        if v.dtype != torch.int32 or v.numel() != 1 or v.device.type != device.type:
+            raise ValueError(f"tracing.count: {group}.{name} must be one int32 on {device}")
+    if device.type != "cuda":
+        t = _tracer
+        t.cpu_counts.append((label, torch.stack([v.reshape(()) for v in values]), budgets))
+        t.n_cpu_counts += 1
+        return
+    idx = _index(device)
+    if idx not in _count_rings:
+        raise RuntimeError(f"tracing: no count ring on {device}; enable() was called "
+                           f"without it")
+    rows, head = _count_rings[idx]
+    spec = _CountSpec(k=len(names), label=label)
+    for j, (v, b) in enumerate(zip(values, budgets)):
+        spec.src[j], spec.budget[j] = v.data_ptr(), b
+    err = _count_fn(rows.data_ptr(), head.data_ptr(), COUNT_ROWS, ctypes.byref(spec),
+                    _raw_stream(idx))
+    if err != 0:
+        raise RuntimeError(f"tracing count: CUDA error {err} at launch")
 
 
 class _Null:
@@ -400,6 +472,36 @@ def _innermost(spans: list, starts: list, t: int) -> Optional[str]:
     return None
 
 
+def _read_counts(t: "_Tracer") -> tuple:
+    """The window's device count rows, each (label, counts, budgets), and
+    the number overwritten."""
+    out = [(lab, v.tolist(), b) for lab, v, b in t.cpu_counts]
+    dropped = t.n_cpu_counts - len(t.cpu_counts)
+    for rows, head in _count_rings.values():
+        torch.cuda.synchronize(rows.device)
+        n = int(head.item())
+        k = min(n, COUNT_ROWS)
+        dropped += n - k
+        for r in rows[:k].tolist():
+            m = r[1]
+            out.append((r[0], r[2:2 + m], r[2 + MAX_COUNTS:2 + MAX_COUNTS + m]))
+    return out, dropped
+
+
+def _count_summary(rows: list) -> dict:
+    """``group.name`` -> the rows' count, mean and maximum of the value, and
+    its budget (the largest recorded), of rows (label, counts, budgets)."""
+    values = collections.defaultdict(list)
+    budgets = collections.defaultdict(list)
+    for lab, vals, bud in rows:
+        group, names = _count_groups[lab]
+        for name, v, b in zip(names, vals, bud):
+            values[f"{group}.{name}"].append(v)
+            budgets[f"{group}.{name}"].append(b)
+    return {k: {"count": len(v), "mean": sum(v) / len(v), "max": max(v),
+                "budget": max(budgets[k])} for k, v in values.items()}
+
+
 def _stats(values: list) -> dict:
     return {"count": len(values), "total_ms": sum(values) * 1e-6,
             "mean_ms": sum(values) / len(values) * 1e-6,
@@ -421,8 +523,11 @@ def report() -> dict:
       outside their stages; ``gaps_ms``: between_ms under ``caller``, and
       each inside interval under the innermost host span open when it
       began;
-    * ``counters``: each counter's change in the window;
-    * ``dropped``: host spans and stamps lost to full buffers."""
+    * ``counters``: each counter's change in the window, and each device
+      count's (:func:`count`) rows, mean, maximum and budget under
+      ``group.name``;
+    * ``dropped``: host spans, and stamps and device count rows, lost to
+      full buffers."""
     t = _tracer
     if t is None:
         raise RuntimeError("tracing.report(): tracing was never enabled")
@@ -471,9 +576,12 @@ def report() -> dict:
              "inside_ms": inside_ns * 1e-6,
              "gaps_ms": {k: v * 1e-6 for k, v in gaps.most_common()}}
     counts = _counts()
+    count_rows, counts_dropped = _read_counts(t)
     result = {"spans": out_spans, "requests": len({s[5] for s in spans}),
               "stages": {n: _stats(v) for n, v in stages.items()}, "calls": calls,
-              "counters": {k: v - t.counts0.get(k, 0) for k, v in counts.items()},
-              "dropped": {"spans": t.n_spans - len(t.spans), "stamps": dropped}}
+              "counters": {**{k: v - t.counts0.get(k, 0) for k, v in counts.items()},
+                           **_count_summary(count_rows)},
+              "dropped": {"spans": t.n_spans - len(t.spans),
+                          "stamps": dropped + counts_dropped}}
     t.window()
     return result

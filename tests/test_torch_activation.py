@@ -54,7 +54,7 @@ def _assert_band_equal(jcfg, depth, pose, budget):
     jc, jn, jo = ja.band_candidate_bricks(jcfg, B, nb, jm, jinv, budget)
     tc, tn, to = ta.band_candidate_bricks(cfg, B, nb, tm, tinv, budget)
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
-    assert int(tn) == int(jn) and bool(to) == bool(jo)
+    assert int(tn[0]) == int(jn) and bool(to) == bool(jo)
     return int(jn), bool(jo)
 
 
@@ -162,7 +162,7 @@ def test_activation_cases_take_their_paths(monkeypatch, case):
         pinv = rigid_inverse(p)
         mips = ta.depth_mips(d, ta.mip_base_level(cfg, B))
         seen.clear()
-        _, n_band, overflow = ta.band_candidate_bricks(cfg, B, vol.bricks_per_axis, mips, pinv,
+        _, counts, overflow = ta.band_candidate_bricks(cfg, B, vol.bricks_per_axis, mips, pinv,
                                                        budget, tile_budget)
         tile_over = seen[0]
         seen.clear()
@@ -171,7 +171,7 @@ def test_activation_cases_take_their_paths(monkeypatch, case):
     want = _OVERFLOWS.get(case, (False,) * 4)
     assert (tile_over, *seen[1:]) == want, seen
     assert bool(frame_over) == any(want[1:]) and bool(overflow) == any(want[:3])
-    assert int(n_band) > 0 or case == "carve_budget"
+    assert int(counts[0]) > 0 or case == "carve_budget"
     if case == "dropouts":
         hit = ~np.isnan(sphere_depth_world(cfg, frames[-1][0], radius=0.5))
         assert 0.04 < float(np.isnan(frames[-1][1])[hit].mean()) < 0.06

@@ -312,3 +312,25 @@ def test_unknown_device_is_an_error(tmp_path, monkeypatch, capsys):
     monkeypatch.setenv("TSDF_DEVICE", "tpu")
     assert tcli.integrate_main(common_args(str(tmp_path), str(tmp_path / "o"))) == 1
     assert "TSDF_DEVICE must be cuda or cpu" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("extra,limits,flag", [
+    (["--brick-capacity", "16"], {"capacity"}, "--brick-capacity"),
+    (["--brick-capacity", "1024", "--update-budget", "16"], {"band", "rough"},
+     "--update-budget")], ids=["capacity", "update_budget"])
+def test_overflow_warning_names_the_limit(tmp_path, cpu_env, capsys, extra, limits, flag):
+    """--sparse with a pool too small for the sphere's bricks, or an update
+    budget too small for its band (--update-budget reaches the frame; its
+    rough list U2, twice the budget, overflows with it): each frame's
+    warning names the limits it exceeded, among those the flag raises, and
+    the flag."""
+    in_dir, out = str(tmp_path / "in"), str(tmp_path / "out")
+    write_tilted_sequence(in_dir, 2)
+    assert tcli.integrate_main(common_args(in_dir, out) + ["--sparse"] + extra) == 0
+    warnings = [x for x in capsys.readouterr().err.splitlines() if x.startswith("Warning")]
+    assert len(warnings) == 2, warnings
+    for i, w in enumerate(warnings):
+        head = f"Warning: frame {i + 1} overflowed its brick "
+        assert w.startswith(head) and w.endswith(f" — increase {flag}"), w
+        named = w[len(head):].split(" limit")[0].split(", ")
+        assert named and set(named) <= limits, w

@@ -1288,16 +1288,20 @@ def assert_same(a, b, what):
 
 def activation_routes_equal(dev, case):
     """Every frame of an activation case (tests/torch_common.py) through
-    the kernels and the plain code, on `dev`: the mips' tables and level
-    table, the band list under the case's tile budget, the carve list, and
-    frame_update_list's batch list and overflow after allocation with the
-    two volumes' allocation state, all bit-equal. Returns the kernel
-    launches each frame made and the last frame's plain band count and
-    overflow."""
-    cfg, B, frames, budget, tile_budget, capacity = activation_case(case)
+    the kernels and the plain code, on `dev` (routes_equal)."""
+    return routes_equal(dev, *activation_case(case))
+
+
+def routes_equal(dev, cfg, B, frames, budget, tile_budget, capacity):
+    """Frames [(pose, depth)] through the activation kernels and the plain
+    code, on `dev`: the mips' tables and level table, the band list and
+    its counts under `tile_budget`, the carve list, and frame_update_list's
+    batch list and overflow after allocation with the two volumes'
+    allocation state, all bit-equal. Returns the kernel launches each
+    frame made and the last frame's plain band count and overflow."""
     vols = [tb.make_brick_volume(cfg, B, capacity, device=dev) for _ in range(2)]
     nb = vols[0].bricks_per_axis
-    carve_budget = tb.carve_budget_for(budget)
+    carve_budget = tb.frame_budgets(vols[0], budget)[1]
     before = dict(ak.launches)
     for pose, depth in frames:
         p = torch.as_tensor(pose, device=dev)
@@ -1312,7 +1316,7 @@ def activation_routes_equal(dev, case):
                 assert x == y, name
         band = [ta.band_candidate_bricks(cfg, B, nb, m, pinv, budget, tile_budget, kernel=k)
                 for m, k in zip(mips, (True, False))]
-        for x, y, name in zip(*band, ("cand", "n_band", "overflow")):
+        for x, y, name in zip(*band, ("cand", "counts", "overflow")):
             assert_same(x, y, name)
         coords = vols[1].coords
         carve = [ta.carve_slots(cfg, B, m, pinv, coords, carve_budget, kernel=k)
@@ -1326,7 +1330,7 @@ def activation_routes_equal(dev, case):
         for name in ("brick_map", "coords", "n_active", "overflowed"):
             assert_same(getattr(vols[0], name), getattr(vols[1], name), name)
     made = {k: (ak.launches[k] - before[k]) // len(frames) for k in before}
-    return made, int(band[1][1]), bool(band[1][2])
+    return made, int(band[1][1][0]), bool(band[1][2])
 
 
 @pytest.mark.parametrize("case", list(ACTIVATION_CASES))
@@ -1339,6 +1343,62 @@ def test_activation_kernels_match_plain(cuda_device, case):
     made, n_band, _ = activation_routes_equal(cuda_device, case)
     assert made == dict.fromkeys(made, 2), made
     assert n_band > 0 or case == "carve_budget"
+
+
+def test_activation_kernels_match_plain_at_room_size(cuda_device):
+    """InfiniTAM's published deployment (5 mm voxels: 600^3 over 3 m, mu
+    0.02 m, depth 0.2-3.0 m, a pool of 2^18 rows of 8^3) with an update
+    budget of 2^16, on 640x480 frames of the benchmark's room sweep
+    (portbench/scenes/room.py), every 15th: the activation kernels against
+    the plain code (routes_equal) under the tile and carve budgets the
+    frame derives, bit for bit, with lists of ~35k band bricks, ~1.5k tiles
+    and ~90k rough bricks a frame, and no budget overflowed."""
+    from portbench import core
+
+    params = core.load_json(core.HERE / "traffic/room_scan.json")["scene_params"]
+    cfg = TSDFConfig(xres=600, yres=600, zres=600, max_dist_pos=0.02, max_dist_neg=0.02,
+                     min_sensor_dist=0.2, max_sensor_dist=3.0)
+    fr = core.scene_module("room").frames(params, cfg, cuda_device)
+    frames = [(fr["poses"][i], fr["depths"][i]) for i in range(0, 120, 15)]
+    budget, capacity = 1 << 16, 1 << 18
+    nb = (cfg.xres // 8,) * 3
+    made, n_band, overflow = routes_equal(cuda_device, cfg, 8, frames, budget,
+                                          tb.tile_budget_for(budget, nb), capacity)
+    assert made == dict.fromkeys(made, 2), made
+    assert 20000 < n_band <= budget and not overflow
+
+
+def test_traced_frame_graph_records_list_counts(cuda_device):
+    """With tracing on, the frame graph records each frame's list counts
+    (activation.lists: tiles, rough, band, carve; one row a frame, the
+    capture's warm-up frame included) equal to the eager plain route's on
+    the same frames; frames fused after tracing is turned off, through
+    untraced graphs, record nothing."""
+    from cpu_tsdf_tpu_torch import graph as tg
+    from cpu_tsdf_tpu_torch import tracing
+
+    cfg = CFG.with_updates(integrate_color=True, color_mode="RGB")
+    frames = _graph_frames(cuda_device, cfg, 6)
+    depths, poses, rgbs = (torch.stack([f[i] for f in frames]) for i in (1, 0, 2))
+    vols = [tb.make_brick_volume(cfg, 8, 4096, device=cuda_device) for _ in range(3)]
+    tg.clear()
+    tracing.enable()
+    try:
+        tb.integrate_bricks_sequence(vols[0], depths, poses, rgbs, 2048)
+        graphed = tracing.report()["counters"]
+        tb.integrate_bricks_sequence(vols[1], depths, poses, rgbs, 2048, use_kernel=False,
+                                     graph=False)
+        plain = tracing.report()["counters"]
+    finally:
+        tracing.disable()
+    tb.integrate_bricks_sequence(vols[2], depths, poses, rgbs, 2048)
+    off = tracing.report()["counters"]
+    names = {f"{tb.LIST_COUNTS}.{n}" for n in ("tiles", "rough", "band", "carve")}
+    assert names <= set(graphed) and not names & set(off)
+    lists = {k: graphed[k] for k in names}
+    assert all(v["count"] == 6 and v["max"] <= v["budget"] for v in lists.values()), lists
+    assert lists == {k: plain[k] for k in names} and lists[f"{tb.LIST_COUNTS}.band"]["max"] > 100
+    assert_states_equal(vols[0], vols[2], "traced and untraced frames")
 
 
 def test_depth_mips_kernels_every_base_level(cuda_device):
@@ -1378,13 +1438,13 @@ def test_activation_kernels_slab_matches_plain(cuda_device, slab):
     nb = (16, 16, 16)
     out = [ta.band_candidate_bricks(cfg, B, nb, mips, pinv, budget, x_slab=slab, kernel=k)
            for k in (True, False)]
-    for x, y, name in zip(*out, ("cand", "n_band", "overflow")):
+    for x, y, name in zip(*out, ("cand", "counts", "overflow")):
         assert_same(x, y, name)
     whole = ta.band_candidate_bricks(cfg, B, nb, mips, pinv, budget, kernel=True)[0]
     whole = whole[whole >= 0]
     bx = whole // (16 * 16)
     want = whole[(bx >= slab[0]) & (bx < slab[0] + slab[1])]
-    n = int(out[0][1])
+    n = int(out[0][1][0])
     assert n > 0 and torch.equal(out[0][0][:n], want)
 
 

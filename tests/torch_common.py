@@ -98,7 +98,9 @@ _ORBIT = [orbit_pose(a) for a in (0.0, 0.5, 1.0)]
 # budget each overflow alone (the last at bricks of 32, where more than
 # half the rough bricks are tight); a frame whose depth lies past the
 # volume after one of the sphere, so that more live bricks than the carve
-# budget lie in front.
+# budget lie in front (a pool of 2^12 rows on the 32^3 bricks: the carve
+# budget, which grows with the pool's share of the brick map, is 640 for
+# the sphere's 1716 live bricks).
 ACTIVATION_CASES = {
     "orbit_b4": (4, _ORBIT, None, 16384, 1024, 32769),
     "orbit_b8": (8, _ORBIT, None, 2048, 1024, 4096),
@@ -110,7 +112,7 @@ ACTIVATION_CASES = {
     "tile_budget": (8, _ORBIT[:1], None, 2048, 12, 4096),
     "rough_budget": (8, _ORBIT[:1], None, 64, 1024, 4096),
     "update_budget": (32, _ORBIT[1:2], None, 32, 1024, 65),
-    "carve_budget": (4, [_ORBIT[0], _ORBIT[0]], "far", 4096, 1024, 32769),
+    "carve_budget": (4, [_ORBIT[0], _ORBIT[0]], "far", 4096, 1024, 4097),
 }
 
 
